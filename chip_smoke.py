@@ -5,20 +5,37 @@
 
 Phases, in order; any failure exits non-zero:
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile the fused-rasterizer forward kernel from the repo's
-              source (ops/rasterizer/csrc/raster_fwd.cu)
-  3. kernel   hold the kernel against its plain PyTorch version on the card,
-              all 13 planes, at (a) the panel shape B=1 S=320 (laptop
-              prior), (b) the training-render shape B=8 S=256 (laptop prior
-              under 8 poses; icosphere(3) scattered scene), (c) edge cases
-  4. slice    the predict path (selfcorr_tpu_torch.predict.main) on cuda at
+  2. build    compile the three kernels from the repo's sources, one nvcc per
+              source, all started together: B1 ops/rasterizer/csrc/
+              raster_fwd.cu, B2 ops/rasterizer/csrc/raster_bwd.cu, B3
+              ops/csrc/flash_attn.cu
+  3. B1       hold the rasterizer forward against its plain PyTorch version
+              on the card, all 13 planes, at (a) the panel shape B=1 S=320
+              (laptop prior), (b) the training-render shape B=8 S=256 (laptop
+              prior under 8 poses; icosphere(3) scattered scene), (c) edge
+              cases
+  4. B2       the rasterizer backward against its plain version at the same
+              scenes, with seeded random cotangents on the 6 differentiable
+              planes: every slot, and a second launch bit-identical
+  5. B3       the DINO attention against its plain version at the trunk's
+              shape (32, 6, 1025, 64) and at ragged T 1, 65, 129
+  6. predict  the predict path (selfcorr_tpu_torch.predict.main) on cuda at
               Wild6D-laptop width on the synthetic eval set with the render
               panels; launch counts are zeroed just before and read just
               after; then warm predict_batch FPS at batch 16 and forward_test
               on the card vs on the CPU
-  5. report   one JSON line per the kernel table, then the result line
+  7. train    the training path (selfcorr_tpu_torch.train.loop.main) on cuda
+              at Wild6D-laptop width, batch 8 x 4 = 32, 6 steps; launch
+              counts zeroed just before and read just after (B1 = B2 = 6,
+              B3 = 54); every logged loss finite; then 5 timed warm steps and
+              a profile of one; then one step with the kernels and one with
+              the plain versions patched in here, from one state, batch and
+              set of draws, the DINO features computed once for both
+  8. report   every kernel held against its plain version at the main
+              paths' inputs; one JSON line per the kernel table, then the
+              result line
 
-Tolerances (kernel vs plain): alpha 2e-3, depth 1.4e-2 absolute; tex /
+Tolerances, B1 (kernel vs plain): alpha 2e-3, depth 1.4e-2 absolute; tex /
 match 3.8e-3 relative to max(1, |plain|), which is absolute for colours in
 [0, 1] and relative for the depth panel's render, whose "texture" is posed
 vertex coordinates (the on-chip gate's bounds of the JAX package; the
@@ -26,9 +43,33 @@ sigma=1e-4 sigmoid amplifies rounding ~1e4x at edges); the softmax max planes
 m_d / m_t 1e-4 absolute; the softmax sum planes s_d / s_t 1e-3 relative to
 max(1, |s|) (with gamma = 1e-4 one ulp of depth moves a softmax weight by
 ~1e-3).
+
+B2 (kernel vs plain): every slot within 1e-4 of that slot's largest plain
+value (the kernel repeats the plain version's per-pair arithmetic at
+-fmad=false; only the order of the per-face sums differs), and finite.
+B3 (kernel vs plain): |kernel - plain| <= 2^-7 |plain| + 2^-12 max|v|
+elementwise. The two take their f32 sums and exponentials in another order,
+so the output may round one bf16 ulp (<= 2^-7 of its value) apart; the floor
+is for a p that straddles a bf16 rounding boundary, which moves the output
+by one ulp of p times |v| / l, far below 2^-12 max|v| unless p / l is large.
+Held at the trunk's shape on random inputs and on "tail" inputs whose real
+scores are all far below zero, where the 63 padding keys of the last tile
+would take most of the softmax if they were not masked, and at ragged T.
+One train step, kernels vs plain versions (from one state with its update
+count set to 0, one batch, one set of draws): aux losses 1e-3 relative,
+group norms 1e-3 relative, every parameter's gradient before clipping
+within 1e-3 of the largest plain gradient of its layer (weight and bias of
+one module), and every updated parameter within 1e-1 of its group's
+learning rate of the plain update. One AdamW step moves an element by about
+its learning rate whatever the gradient, so the update check catches only
+gross errors; the gradients are what a wrong slot would move. A parameter
+whose plain gradient is below 1e-4 of its layer's is rounding noise (the
+deformation head's fc_rgb.bias: the vertex offsets are mean-centred) and
+its update is not compared.
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import os
@@ -44,8 +85,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
 
 # H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
-# cores, HBM3 bandwidth
+# cores, dense bf16 on the tensor cores, HBM3 bandwidth
 FP32_PEAK = 67e12
+BF16_PEAK = 989e12
 HBM_BW = 3.35e12
 
 # fp32 operations per (face, pixel) pair that does each part of the work,
@@ -59,6 +101,20 @@ HBM_BW = 3.35e12
 # all of it costs 171. The per-pixel epilogue and the winner's texture (~21
 # operations per pixel) are left out.
 OPS_PER_PAIR = {"cover": 97, "cover1": 6, "cover2": 6, "tex": 34, "depth": 28}
+
+# fp32 operations per (face, pixel) pair that the gradient needs, by the same
+# pair classes: "cover": the geometry of B1 (97), the coverage cotangent (6),
+# the dis2 chain (9), the first-edge pick (2), the accumulations of the first
+# minimizing edge, the only edge dis2 passes its gradient to (19: ds_raw 3,
+# its three SEG slots 5, its E2 slot 6, its three PC slots 5), and those of
+# the 1/z, z and texture slots (39); "cover1": the sigma1 sigmoid (6) and
+# the depth-softmax chain (31); "cover2": the sigma2 sigmoid (6) and the
+# texture-softmax chain (37). A pair covered at both sigmas costs 252.
+# (raster_bwd.cu also runs the other two edges' accumulations, which add
+# zero; they are the kernel's cost, not the function's, and are not
+# charged.)
+OPS_PER_PAIR_BWD = {"cover": 172, "cover1": 37, "cover2": 43}
+B2_REL_TOL = 1e-4
 
 TOL = {"alpha1": 2e-3, "alpha2": 2e-3, "depth": 1.4e-2,
        "m_d": 1e-4, "m_t": 1e-4}
@@ -158,9 +214,10 @@ def edge_scenes(rng):
 # kernel vs plain
 # ---------------------------------------------------------------------------
 
-def compare(ko, po):
-    """Max |kernel - plain| per plane, and the planes over tolerance."""
-    errs, bad = {}, []
+def fwd_compare(ko, po):
+    """B1: max |kernel - plain| per plane, and whether every plane is
+    within its tolerance (and finite)."""
+    errs, ok = {}, True
     for n, ref in po.items():
         d = (ko[n] - ref).abs()
         if n in REL_TOL:
@@ -168,9 +225,58 @@ def compare(ko, po):
         else:
             lim = TOL[n]
         errs[n] = float(d.max()) if d.numel() else 0.0
-        if not (bool((d <= lim).all()) and bool(torch.isfinite(ko[n]).all())):
-            bad.append(n)
-    return errs, bad
+        ok &= bool((d <= lim).all()) and bool(torch.isfinite(ko[n]).all())
+    return errs, ok
+
+
+def hold(name, *args):
+    """Kernel `name` and its plain version on the same inputs: (the
+    kernel's output, its max |kernel - plain| (per plane for B1), whether
+    it is within the tolerance)."""
+    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.ops.rasterizer import reference as R
+    kernel, plain, check = {
+        "raster_fused_fwd": (KR.raster_fused_fwd_cuda,
+                             R.raster_fused_fwd_plain, fwd_compare),
+        "raster_fused_bwd": (KR.raster_fused_bwd_cuda,
+                             R.raster_fused_bwd_plain, bwd_compare),
+        "dino_flash_attn": (A.flash_attention_cuda, A.flash_attention_plain,
+                            lambda ko, po: attn_compare(ko, po, args[2])),
+    }[name]
+    ko, po = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    return (ko, *check(ko, po))
+
+
+class Capture:
+    """Wraps a kernel wrapper of a module while the main path runs, keeping
+    the inputs (cloned) of its first call, or of every call with keep_all;
+    the count stays the wrapper's."""
+
+    def __init__(self, module, name, keep_all=False):
+        self.module, self.name, self.keep_all = module, name, keep_all
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def spy(*args):
+            if self.keep_all or not self.calls:
+                self.calls.append(tuple(clone(a) for a in args))
+            return self.fn(*args)
+        setattr(self.module, self.name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def clone(a):
+    if isinstance(a, torch.Tensor):
+        return a.clone()
+    if isinstance(a, dict):
+        return {k: clone(v) for k, v in a.items()}
+    return a
 
 
 def time_ms(fn, reps=20, warmup=3):
@@ -215,9 +321,6 @@ def kernel_costs(consts, s, sigma1, sigma2, gamma_d, gamma_t):
 
 def kernel_phase(rng, dev):
     from selfcorr_tpu_torch.ops.rasterizer import common as C
-    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
-    from selfcorr_tpu_torch.ops.rasterizer.reference import \
-        raster_fused_fwd_plain
     cases = []
     fv, st, ht = laptop_scene(rng, 1)
     cases.append(("(a) panel laptop B=1 S=320", fv, st, ht, 320,
@@ -239,16 +342,13 @@ def kernel_phase(rng, dev):
                                   torch.tensor(st, device=dev),
                                   torch.tensor(ht, device=dev))
         for sg in sigmas:
-            ko = KR.raster_fused_fwd_cuda(consts, s, *sg)
-            po = raster_fused_fwd_plain(consts, s, *sg)
-            torch.cuda.synchronize()
-            errs, bad = compare(ko, po)
+            _, errs, ok = hold("raster_fused_fwd", consts, s, *sg)
             tag = f"{name} gamma_t={sg[3]:g}"
             print(f"[kernel] {tag}: F={consts.shape[1]} max|err| "
                   + " ".join(f"{n}={e:.3g}" for n, e in errs.items()),
                   flush=True)
-            if bad:
-                failures.append(f"{tag}: {bad}")
+            if not ok:
+                failures.append(tag)
             if timed:
                 c = kernel_costs(consts, s, *sg)
                 timings[name] = c
@@ -260,6 +360,162 @@ def kernel_phase(rng, dev):
         fail("kernel disagrees with its plain version: "
              + "; ".join(failures))
     return timings
+
+
+def bwd_compare(kg, pg):
+    """Largest |kernel - plain| of the backward, and whether every slot is
+    within B2_REL_TOL of that slot's largest plain value (and finite)."""
+    if pg.numel() == 0:
+        return 0.0, kg.shape == pg.shape
+    err = (kg - pg).abs()
+    lim = B2_REL_TOL * pg.abs().amax(dim=(0, 1)).clamp(min=1e-30)
+    ok = bool((err <= lim).all()) and bool(torch.isfinite(kg).all())
+    return float(err.max()), ok
+
+
+def random_grads(rng, b, s, dev):
+    from selfcorr_tpu_torch.ops.rasterizer.reference import BWD_GRADS
+    return {n: torch.tensor(rng.randn(b, s, s).astype(np.float32),
+                            device=dev) for n in BWD_GRADS}
+
+
+def bwd_costs(consts, planes, grads, s, *sg):
+    """B2 and plain times, and the bound: the larger of the operations of
+    the pairs that do work (counted by the plain forward's own masks, times
+    OPS_PER_PAIR_BWD) over the fp32 peak, and the 16 planes and the
+    constants read once plus the gradient written once over HBM
+    bandwidth."""
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.ops.rasterizer.reference import (
+        raster_fused_bwd_plain, raster_fused_fwd_plain)
+    ms = time_ms(lambda: KR.raster_fused_bwd_cuda(consts, planes, grads, s,
+                                                  *sg))
+    plain_ms = time_ms(lambda: raster_fused_bwd_plain(consts, planes, grads,
+                                                      s, *sg),
+                       reps=3, warmup=1)
+    pairs = {}
+    raster_fused_fwd_plain(consts, s, *sg, pair_counts=pairs)
+    ops = sum(OPS_PER_PAIR_BWD[k] * pairs[k] for k in OPS_PER_PAIR_BWD)
+    b, f, k = consts.shape
+    nbytes = 2 * b * f * k * 4 + 16 * b * s * s * 4
+    t_ops = ops / FP32_PEAK * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, pairs=pairs, ops=ops, bytes=nbytes,
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def b2_phase(rng, dev):
+    from selfcorr_tpu_torch.ops.rasterizer import common as C
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.ops.rasterizer.reference import \
+        raster_fused_fwd_plain
+    cases =[("(a) panel laptop B=1 S=320", *laptop_scene(rng, 1), 320, True),
+             ("(b) laptop 8 poses B=8 S=256", *laptop_scene(rng, 8), 256,
+              True),
+             ("(b) ico(3) scattered B=8 S=256", *ico_scene(rng, 8), 256,
+              True)]
+    cases += [(f"(c) {n}", *sc, 64, False)
+              for n, sc in edge_scenes(rng).items()]
+    sg = (1e-4, 1e-3, 1e-4, 1e-2)
+    timings, failures = {}, []
+    for name, fv, st, ht, s, timed in cases:
+        consts = C.pack_constants(*(torch.tensor(a, device=dev)
+                                    for a in (fv, st, ht)))
+        planes = raster_fused_fwd_plain(consts, s, *sg)
+        grads = random_grads(rng, consts.shape[0], s, dev)
+        kg, err, ok = hold("raster_fused_bwd", consts, planes, grads, s, *sg)
+        same = torch.equal(kg, KR.raster_fused_bwd_cuda(consts, planes, grads,
+                                                        s, *sg))
+        print(f"[B2] {name}: F={consts.shape[1]} max|err| {err:.3g} (slot "
+              f"scale up to {float(kg.abs().max()) if kg.numel() else 0:.3g})"
+              f"; repeat bit-identical: {same}", flush=True)
+        if not ok:
+            failures.append(f"{name}: disagrees with the plain version")
+        if not same:
+            failures.append(f"{name}: a second launch differs")
+        if timed:
+            c = bwd_costs(consts, planes, grads, s, *sg)
+            timings[name] = c
+            print(f"[B2] {name}: kernel {c['ms']} ms, plain {c['plain_ms']} "
+                  f"ms, bound {c['bound_ms']} ms ({c['bound_by']}; "
+                  f"{c['ops']} operations over pairs {c['pairs']}; "
+                  f"{c['bytes']} bytes)", flush=True)
+    if failures:
+        fail("B2: " + "; ".join(failures))
+    return timings
+
+
+def attn_compare(ko, po, v):
+    """Largest |kernel - plain|, and whether every element is within
+    2^-7 |plain| + 2^-12 max|v| (see the module docstring)."""
+    k, p = ko.float(), po.float()
+    err = (k - p).abs()
+    lim = 2.0 ** -7 * p.abs() + 2.0 ** -12 * float(v.float().abs().max())
+    ok = bool((err <= lim).all()) and bool(torch.isfinite(k).all())
+    return (float(err.max()) if err.numel() else 0.0), ok
+
+
+def attn_costs(q, k, v):
+    """B3, plain and scaled_dot_product_attention times on the same bf16
+    inputs, and the bound: the larger of 4 B H T^2 d operations over the
+    dense bf16 peak and q, k, v read once plus o written once over HBM
+    bandwidth."""
+    from selfcorr_tpu_torch.ops import attention as A
+    b, h, t, d = q.shape
+    ms = time_ms(lambda: A.flash_attention_cuda(q, k, v))
+    plain_ms = time_ms(lambda: A.flash_attention_plain(q, k, v), reps=5,
+                       warmup=1)
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v))
+    ops = 4 * b * h * t * t * d
+    nbytes = 4 * b * h * t * d * 2
+    t_ops = ops / BF16_PEAK * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops=ops,
+                bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def qkv_views(b, h, t, dev, gen, tail=False):
+    """q, k, v (B, H, T, 64) bf16 views of one (B, T, 3, H, 64) tensor, the
+    trunk's layout. With `tail`, q >= 0 and k <= 0, so every real score is
+    far below the 0 that an unmasked zero padding key would score."""
+    qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=dev)
+    if tail:
+        qkv[:, :, 0] = qkv[:, :, 0].abs()
+        qkv[:, :, 1] = -qkv[:, :, 1].abs()
+    qkv = qkv.bfloat16()
+    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+
+
+B3_CASES = (("trunk", (32, 6, 1025), False),
+            ("trunk tail", (32, 6, 1025), True),
+            ("T=1", (2, 6, 1), False), ("T=65", (2, 6, 65), False),
+            ("T=129", (2, 6, 129), False))
+
+
+def b3_phase(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    failures, cost, errs = [], None, {}
+    for name, shape, tail in B3_CASES:
+        q, k, v = qkv_views(*shape, dev, gen, tail)
+        _, err, ok = hold("dino_flash_attn", q, k, v)
+        errs[name] = err
+        print(f"[B3] {name} (B, H, T) = {shape}: max|err| {err:.3g}",
+              flush=True)
+        if not ok:
+            failures.append(f"{name}: disagrees with the plain version")
+        if name == "trunk":
+            cost = attn_costs(q, k, v)
+            print(f"[B3] {shape}: kernel {cost['ms']} ms, plain "
+                  f"{cost['plain_ms']} ms, scaled_dot_product_attention "
+                  f"{cost['library_ms']} ms, bound {cost['bound_ms']} ms "
+                  f"({cost['bound_by']}; {cost['ops']} operations, "
+                  f"{cost['bytes']} bytes)", flush=True)
+    if failures:
+        fail("B3: " + "; ".join(failures))
+    return dict(cost, max_abs_err_by_case=errs)
 
 
 # ---------------------------------------------------------------------------
@@ -279,22 +535,12 @@ def slice_phase():
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
 
     run_args = SLICE_ARGS + ["--checkpoint_dir", OUT, "--name", "predict"]
-    captured = []
-    launch = KR.raster_fused_fwd_cuda
-
-    def spy(consts, *a):
-        captured.append((consts.clone(), a))
-        return launch(consts, *a)
-
-    KR.raster_fused_fwd_cuda = spy
-    KR.reset_launches()
-    t0 = time.time()
-    try:
+    with Capture(KR, "raster_fused_fwd_cuda", keep_all=True) as cap:
+        reset_launches()
+        t0 = time.time()
         results = predict.main(["predict"] + run_args)
-    finally:
-        KR.raster_fused_fwd_cuda = launch
-    torch.cuda.synchronize()
-    launches = dict(KR.LAUNCHES)
+        torch.cuda.synchronize()
+        launches = read_launches()
     wall = time.time() - t0
     print(f"[slice] predict.main wall {wall:.2f} s (cold: data, first "
           f"launches); kernel launches {launches}", flush=True)
@@ -314,7 +560,7 @@ def slice_phase():
     if launches["raster_fused_fwd"] == 0:
         fail("the predict path never launched raster_fused_fwd")
     cfg = parse_args(run_args).replace(train=False, device="cuda")
-    return cfg, launches, captured
+    return cfg, launches, cap.calls
 
 
 def fps_and_cpu_parity(cfg, card: str):
@@ -339,7 +585,8 @@ def fps_and_cpu_parity(cfg, card: str):
           f"{cfg.batch_size}: {per_batch * 1e3:.2f} ms/batch = {fps:.1f} "
           f"frames/s over {reps} repeats on {card}", flush=True)
 
-    breakdown = profile_predict(tester, batch)
+    breakdown = profile_calls(lambda: tester.predict_batch(batch), 3,
+                              "predict_batch", "predict_profile.txt")
 
     jitter = torch.tensor([1.1, 0.9, 1.05, 0.02])
     gpu = forward_test(tester.model, tester.to_device(batch),
@@ -361,11 +608,11 @@ def fps_and_cpu_parity(cfg, card: str):
     return per_batch, fps, breakdown
 
 
-def profile_predict(tester, batch, reps=3):
-    """Where a warm predict_batch spends its time: device time by kernel
-    and by PyTorch op over `reps` calls (torch.profiler), and the share of
-    the calls' wall time in which the device ran a kernel. The full table
-    goes to chiprun_out/chip_smoke/predict_profile.txt."""
+def profile_calls(fn, reps: int, label: str, filename: str):
+    """Where `reps` warm calls of fn spend their time: device time by kernel
+    and by PyTorch op (torch.profiler), and the share of the calls' wall
+    time in which the device ran a kernel. The full table goes to
+    chiprun_out/chip_smoke/<filename>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -373,11 +620,11 @@ def profile_predict(tester, batch, reps=3):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         for _ in range(reps):
-            tester.predict_batch(batch)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3 / reps
     avg = prof.key_averages()
-    with open(os.path.join(OUT, "predict_profile.txt"), "w") as f:
+    with open(os.path.join(OUT, filename), "w") as f:
         f.write(avg.table(sort_by="self_device_time_total", row_limit=60))
 
     def top(events, n=10):
@@ -388,7 +635,7 @@ def profile_predict(tester, batch, reps=3):
     kernels = [e for e in avg if e.device_type == DeviceType.CUDA]
     ops = [e for e in avg if e.device_type == DeviceType.CPU]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / reps
-    print(f"[profile] predict_batch: {wall_ms:.2f} ms wall per batch, "
+    print(f"[profile] {label}: {wall_ms:.2f} ms wall per call, "
           f"device busy {busy_ms:.2f} ms "
           f"({100.0 * busy_ms / wall_ms:.1f}%)", flush=True)
     by_kernel, by_op = top(kernels), top(ops)
@@ -398,6 +645,242 @@ def profile_predict(tester, batch, reps=3):
         print(f"[profile] kernel {ms:8.3f} ms x{n:<4d} {name}")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "by_op": by_op, "by_kernel": by_kernel}
+
+
+# ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 6
+TRAIN_ARGS = ["--flagfile", "config/wild6d/laptop.txt",
+              "--dataset_name", "synthetic", "--total_iters",
+              str(TRAIN_STEPS), "--batch_log_interval", "1"]
+
+
+def reset_launches():
+    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    KR.reset_launches()
+    A.reset_launches()
+
+
+def read_launches():
+    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    return {**KR.LAUNCHES, **A.LAUNCHES}
+
+
+def train_phase():
+    """The training path through its entry point, with the launch counts
+    of its run and each kernel's first main-path inputs."""
+    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.train import loop
+    args = TRAIN_ARGS + ["--checkpoint_dir", OUT, "--name", "train"]
+    with Capture(KR, "raster_fused_fwd_cuda") as c1, \
+            Capture(KR, "raster_fused_bwd_cuda") as c2, \
+            Capture(A, "flash_attention_cuda") as c3:
+        reset_launches()
+        t0 = time.time()
+        trainer = loop.main(["train"] + args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    wall = time.time() - t0
+    print(f"[train] loop.main {TRAIN_STEPS} steps, wall {wall:.2f} s (cold: "
+          f"data, first launches); kernel launches {launches}", flush=True)
+    want = {"raster_fused_fwd": TRAIN_STEPS, "raster_fused_bwd": TRAIN_STEPS,
+            "dino_flash_attn": 9 * TRAIN_STEPS}
+    if launches != want:
+        fail(f"training launches {launches}, expected {want}: one render "
+             f"(B1 forward, B2 backward) and 9 attention blocks per step")
+    logged = trainer.logged
+    bad = [(st, k, v) for st, vals in logged for k, v in vals.items()
+           if not math.isfinite(v)]
+    if len(logged) != TRAIN_STEPS or bad:
+        fail(f"training logged {len(logged)} of {TRAIN_STEPS} steps; "
+             f"non-finite metrics: {bad}")
+    print("[train] logged total_loss: "
+          + " ".join(f"{v['total_loss']:.8f}" for _, v in logged))
+    return trainer, launches, {"raster_fused_fwd": c1.calls[0],
+                               "raster_fused_bwd": c2.calls[0],
+                               "dino_flash_attn": c3.calls[0]}
+
+
+def train_batch(trainer):
+    from selfcorr_tpu_torch.models.meshnet import draw_step
+    from selfcorr_tpu_torch.train.loop import (make_train_dataset,
+                                               step_generator)
+    from selfcorr_tpu_torch.train.step import compress_batch_host
+    from selfcorr_tpu_torch.data.loader import stack_items
+    cfg = trainer.cfg
+    ds = make_train_dataset(cfg)
+    host = stack_items([ds.load_item(*a) for a in ds.sample_plan(0)])
+    batch = trainer.upload(compress_batch_host(host))
+    draws = draw_step(step_generator(cfg.seed, 100), cfg,
+                      batch["img"].shape[0])
+    return batch, draws
+
+
+def train_timing(trainer, card: str, reps: int = 5):
+    """Warm train_step time on one device batch (the loop's data loading
+    excluded), and a profile of one step."""
+    from selfcorr_tpu_torch.train.step import train_step
+    cfg = trainer.cfg
+    batch, draws = train_batch(trainer)
+    b = batch["img"].shape[0]
+    train_step(trainer.state, batch, draws, cfg)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.time()
+        m = train_step(trainer.state, batch, draws, cfg)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        if not math.isfinite(float(m["total_loss"])):
+            fail("a timed train step gave a non-finite loss")
+    step_ms = statistics.median(times) * 1e3
+    print(f"[train] warm train_step at batch {b}: median {step_ms:.2f} ms "
+          f"over {reps} steps ({', '.join(f'{t * 1e3:.1f}' for t in times)})"
+          f" = {b / step_ms * 1e3:.1f} imgs/s on {card}", flush=True)
+    prof = profile_calls(lambda: train_step(trainer.state, batch, draws, cfg),
+                         1, "train_step", "train_profile.txt")
+    return step_ms, b / step_ms * 1e3, prof
+
+
+def step_kernels_vs_plain(state, batch, draws, cfg):
+    """One train step with the kernels and one with the plain versions
+    patched in, each from a copy of `state` with its update count set to 0
+    (learning rates 1/25 of the peaks), on one batch and set of draws; the
+    DINO features are computed once and fed to both (dino_pair_match takes
+    argmaxes). Compares the metrics, every parameter's gradient before
+    clipping (taken where train_step hands it to clip_and_guard) and the
+    updated parameters."""
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.ops.rasterizer.reference import (
+        raster_fused_bwd_plain, raster_fused_fwd_plain)
+    from selfcorr_tpu_torch.train import step as ST
+    with torch.no_grad():
+        feats = state.dino(batch["img"].float() / 255.0)
+    lrs = state.optimizer.lrs(0)
+    lr_of = {n: lrs[g] for g, ps in state.optimizer.groups.items()
+             for n, _ in ps}
+    before = {n: p.detach().clone()
+              for n, p in state.model.named_parameters()}
+    runs = {}
+    for route in ("kernels", "plain"):
+        st = copy.deepcopy(state)
+        st.step = 0
+        st.dino = lambda img: feats
+        grads = {}
+        guard = ST.clip_and_guard
+
+        def keep_grads(model):
+            grads.update({n: p.grad.clone()
+                          for n, p in model.named_parameters()})
+            return guard(model)
+
+        saved = KR.raster_fused_fwd_cuda, KR.raster_fused_bwd_cuda
+        ST.clip_and_guard = keep_grads
+        if route == "plain":
+            KR.raster_fused_fwd_cuda = raster_fused_fwd_plain
+            KR.raster_fused_bwd_cuda = raster_fused_bwd_plain
+        try:
+            m = ST.train_step(st, batch, draws, cfg)
+            torch.cuda.synchronize()
+        finally:
+            KR.raster_fused_fwd_cuda, KR.raster_fused_bwd_cuda = saved
+            ST.clip_and_guard = guard
+        runs[route] = ({k: float(v) for k, v in m.items()}, grads,
+                       {n: p.detach() for n, p in
+                        st.model.named_parameters()})
+    (mk, gk, pk), (mp, gp, pp) = runs["kernels"], runs["plain"]
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    aux = {k: rel(mk[k], mp[k]) for k in mk
+           if not k.startswith("grad_") and k != "bad_grad"}
+    norms = {k: rel(mk[k], mp[k]) for k in mk if k.startswith("grad_")}
+    # each gradient against the largest plain gradient of its layer (the
+    # weight and bias of one module): a leaf whose gradient is zero but for
+    # rounding (the deformation head's fc_rgb.bias, which the mean-centring
+    # of the vertex offsets cancels) has no scale of its own
+    scale = {}
+    for n, g in gp.items():
+        mod = n.rsplit(".", 1)[0]
+        scale[mod] = max(scale.get(mod, 0.0), float(g.abs().max()))
+    of_layer = {n: max(scale[n.rsplit(".", 1)[0]], 1e-30) for n in gp}
+    grad = {n: float((gk[n] - gp[n]).abs().max()) / of_layer[n] for n in gp}
+    # each update against its group's learning rate, past the one float32
+    # rounding of the new value (2^-23 of it) that either route may take;
+    # not for a rounding-noise leaf, whose update is AdamW's answer to noise
+    noise = [n for n in lr_of
+             if float(gp[n].abs().max()) < 1e-4 * of_layer[n]]
+    upd = {n: float(((pk[n] - pp[n]).abs() - 2.0 ** -23 * pp[n].abs())
+                    .clamp(min=0).max()) / lr_of[n]
+           for n in lr_of if n not in noise}
+    for n in pp:
+        if n not in lr_of and not torch.equal(pp[n], before[n]):
+            fail(f"the frozen parameter {n} moved")
+    print(f"[train] gradients that are rounding noise (< 1e-4 of their "
+          f"layer's largest), updates not compared: {noise}", flush=True)
+    worst = {"aux": max(aux, key=aux.get), "norms": max(norms, key=norms.get),
+             "grad": max(grad, key=grad.get), "upd": max(upd, key=upd.get)}
+    print(f"[train] one step at count 0, kernels vs plain: aux losses max "
+          f"rel err {aux[worst['aux']]:.3g} ({worst['aux']}); group norms "
+          f"max rel err {norms[worst['norms']]:.3g} ({worst['norms']}); "
+          f"gradients max err {grad[worst['grad']]:.3g} of the layer's "
+          f"largest ({worst['grad']}); updated parameters max err "
+          f"{upd[worst['upd']]:.3g} of the group's lr ({worst['upd']})",
+          flush=True)
+    for name, d in (("gradient", grad), ("update", upd)):
+        top = sorted(d, key=d.get, reverse=True)[:5]
+        print(f"[train]   largest {name} errors: "
+              + ", ".join(f"{n} {d[n]:.3g}" for n in top), flush=True)
+    bad = ([k for k, e in aux.items() if not e <= 1e-3]
+           + [k for k, e in norms.items() if not e <= 1e-3]
+           + [f"grad {n}" for n, e in grad.items() if not e <= 1e-3]
+           + [f"update {n}" for n, e in upd.items() if not e <= 1e-1])
+    if bad or mk["bad_grad"] or mp["bad_grad"]:
+        fail(f"train step with kernels disagrees with the plain versions "
+             f"in {len(bad)} places: {bad[:10]}")
+    return {"aux_max_rel": aux[worst["aux"]],
+            "norms_max_rel": norms[worst["norms"]],
+            "grads_max_rel": grad[worst["grad"]],
+            "updates_max_of_lr": upd[worst["upd"]], "noise_leaves": noise}
+
+
+def report_main_path(captured):
+    """Each kernel against its plain version at the training path's first
+    inputs; times and bounds there."""
+    costs = {"raster_fused_fwd": kernel_costs, "raster_fused_bwd": bwd_costs,
+             "dino_flash_attn": attn_costs}
+    out = {}
+    for name, args in captured.items():
+        _, err, ok = hold(name, *args)
+        if not ok:
+            fail(f"{name} disagrees at the training path's inputs")
+        if isinstance(err, dict):
+            err = max(err.values())
+        out[name] = dict(costs[name](*args), max_abs_err=err)
+        c = out[name]
+        print(f"[report] {name} at the training path's inputs: kernel "
+              f"{c['ms']} ms, plain {c['plain_ms']} ms, bound {c['bound_ms']}"
+              f" ms ({c['bound_by']}), library {c.get('library_ms')} ms, "
+              f"max|err| {c['max_abs_err']:.3g}", flush=True)
+    return out
+
+
+KERNELS = {
+    "raster_fused_fwd": ("selfcorr_tpu_torch/ops/rasterizer/csrc/"
+                         "raster_fwd.cu",
+                         "selfcorr_tpu/ops/rasterizer/pallas_raster.py:806"),
+    "raster_fused_bwd": ("selfcorr_tpu_torch/ops/rasterizer/csrc/"
+                         "raster_bwd.cu",
+                         "selfcorr_tpu/ops/rasterizer/pallas_raster.py:1177"),
+    "dino_flash_attn": ("selfcorr_tpu_torch/ops/csrc/flash_attn.cu",
+                        "selfcorr_tpu/models/vit.py:72"),
+}
 
 
 def main() -> int:
@@ -417,63 +900,87 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     os.makedirs(OUT, exist_ok=True)
+    from selfcorr_tpu_torch.ops import attention as A
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.utils import cuda_build
     from selfcorr_tpu_torch.utils.device import set_fp32_precision
     set_fp32_precision()
 
     phase("build")
     t0 = time.time()
+    cuda_build.build_all(list(KR.SOURCES.values()) + [A.SOURCE])
     KR.build()
-    print(f"[build] raster_fwd.cu built and bound in {time.time() - t0:.2f} s",
+    A.build()
+    build_s = time.time() - t0
+    print(f"[build] raster_fwd.cu, raster_bwd.cu, flash_attn.cu built (one "
+          f"nvcc each, in parallel) and bound in {build_s:.2f} s",
           flush=True)
 
-    phase("kernel vs plain version")
+    phase("B1 vs plain version")
     rng = np.random.RandomState(0)
     timings = kernel_phase(rng, dev)
+    phase("B2 vs plain version")
+    b2_timings = b2_phase(rng, dev)
+    phase("B3 vs plain version")
+    b3_cost = b3_phase(dev)
 
     phase("predict slice")
-    cfg, launches, captured = slice_phase()
+    cfg, predict_launches, captured = slice_phase()
     per_batch, fps, breakdown = fps_and_cpu_parity(cfg, smi)
-
-    phase("report")
-    from selfcorr_tpu_torch.ops.rasterizer.reference import \
-        raster_fused_fwd_plain
-    # every launch of the main path, texture and depth-panel renders alike,
-    # against the plain version on the same inputs
+    # every launch of the predict path, texture and depth-panel renders
+    # alike, against the plain version on the same inputs
     errs, bad = {}, []
-    for i, (consts, a) in enumerate(captured):
-        ko = KR.raster_fused_fwd_cuda(consts, *a)
-        po = raster_fused_fwd_plain(consts, *a)
-        e, over = compare(ko, po)
+    for i, args in enumerate(captured):
+        _, e, ok = hold("raster_fused_fwd", *args)
         errs = {n: max(v, errs.get(n, 0.0)) for n, v in e.items()}
-        bad += [f"launch {i}: {n}" for n in over]
-    print(f"[report] {len(captured)} main-path launches vs plain, max|err| "
+        bad += [] if ok else [f"launch {i}"]
+    print(f"[predict] {len(captured)} main-path launches vs plain, max|err| "
           + " ".join(f"{n}={e:.3g}" for n, e in errs.items()), flush=True)
     if bad:
-        fail(f"kernel disagrees at the main path's inputs: {bad}")
-    consts, a = captured[0]
-    main_cost = kernel_costs(consts, *a)
-    print(f"[report] main-path inputs: B={consts.shape[0]} F="
-          f"{consts.shape[1]} S={a[0]}; kernel {main_cost['ms']} ms, "
-          f"plain {main_cost['plain_ms']} ms, bound {main_cost['bound_ms']} "
-          f"ms ({main_cost['bound_by']}; {main_cost['ops']} operations over "
-          f"pairs {main_cost['pairs']})")
-    summary = {"card": smi, "predict_ms_per_batch": per_batch * 1e3,
+        fail(f"kernel disagrees at the predict path's inputs: {bad}")
+    consts, *a = captured[0]
+    predict_cost = kernel_costs(consts, *a)
+    print(f"[predict] B1 at the predict path's inputs: B={consts.shape[0]} "
+          f"F={consts.shape[1]} S={a[0]}; kernel {predict_cost['ms']} ms, "
+          f"plain {predict_cost['plain_ms']} ms, bound "
+          f"{predict_cost['bound_ms']} ms ({predict_cost['bound_by']}; "
+          f"{predict_cost['ops']} operations over pairs "
+          f"{predict_cost['pairs']})", flush=True)
+
+    phase("training slice")
+    trainer, train_launches, train_captured = train_phase()
+    # the trained state before the timed steps advance it further
+    state = copy.deepcopy(trainer.state)
+    step_ms, ips, train_prof = train_timing(trainer, smi)
+    parity = step_kernels_vs_plain(state, *train_batch(trainer), trainer.cfg)
+
+    phase("report")
+    main_costs = report_main_path(train_captured)
+    summary = {"card": smi, "build_s": build_s,
+               "predict_ms_per_batch": per_batch * 1e3,
                "predict_fps_batch16": fps, "predict_profile": breakdown,
-               "launches": launches,
-               "kernel_at_scenes": timings, "kernel_main_path": main_cost,
-               "main_path_max_abs_err": errs}
+               "launches": {"predict": predict_launches,
+                            "train": train_launches},
+               "b1_at_scenes": timings, "b1_predict_path": predict_cost,
+               "b1_predict_path_max_abs_err": errs,
+               "b2_at_scenes": b2_timings, "b3_trunk_shape": b3_cost,
+               "train_step_ms": step_ms, "train_imgs_per_s": ips,
+               "train_profile": train_prof, "train_step_parity": parity,
+               "train_path": main_costs}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    print(json.dumps({"kernels": [{
-        "name": "raster_fused_fwd", "route": "cuda",
-        "source": "selfcorr_tpu_torch/ops/rasterizer/csrc/raster_fwd.cu",
-        "replaces": "selfcorr_tpu/ops/rasterizer/pallas_raster.py:806",
-        "launches": launches["raster_fused_fwd"],
-        "max_abs_err": max(errs.values()),
-        "ms": main_cost["ms"], "plain_ms": main_cost["plain_ms"],
-        "bound_ms": main_cost["bound_ms"],
-        "bound_by": main_cost["bound_by"], "library_ms": None}]}))
+    rows = []
+    for name, (src, replaces) in KERNELS.items():
+        c = main_costs[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": train_launches[name],
+            "launches_by_path": {"predict": predict_launches.get(name, 0),
+                                 "train": train_launches[name]},
+            "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"], "library_ms": c.get("library_ms")})
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -3,9 +3,10 @@ names and `--flagfile` includes (counterpart of selfcorr_tpu/configs.py).
 
 The port keeps every field of the JAX package's Config so that any flag file
 either package accepts parses here too; fields that only steer the JAX
-package (use_pallas, dino_*, steps_per_dispatch, ...) are parsed and
-ignored. `device` is the port's own field: entry points run on "cuda"
-unless the caller asks for "cpu".
+package (use_pallas, dino_flash, dino_pad_once, steps_per_dispatch, ...) are
+parsed and ignored. dino_attn_bf16 selects the trunk's bf16 attention
+(kernel B3 on the card). `device` is the port's own field: entry points run
+on "cuda" unless the caller asks for "cpu".
 """
 from __future__ import annotations
 

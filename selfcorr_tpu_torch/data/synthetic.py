@@ -177,3 +177,44 @@ class SyntheticTest:
                 [0, 0, self.videos.z0[vid]])).astype(np.float32)
             out["scale_gt"] = size.astype(np.float32)
         return out
+
+
+class SyntheticTrain:
+    """Training analogue of the Wild6D reader over the procedural videos
+    (counterpart of SyntheticTrain, selfcorr_tpu/data/synthetic.py:207).
+
+    sample_plan draws, for each of cfg.batch_size videos, cfg.repeat frames
+    spread over the video (video-major, frame-minor: the pairing layout)
+    and each frame's crop scale, all from one RandomState in plan order, so
+    a run's batches do not depend on the loader's thread timing."""
+
+    def __init__(self, cfg: Config, seed: int = 0, num_videos: int = 4,
+                 frames_per_video: int = 24, shape: str = "ellipsoid"):
+        self.cfg = cfg
+        self.videos = SyntheticVideos(num_videos, frames_per_video,
+                                      seed=seed, shape=shape)
+        self.rng = np.random.RandomState(seed + 1)
+
+    def sample_plan(self, step: int):
+        """[(vid, fid, crop scale (2,))] for one batch."""
+        cfg = self.cfg
+        plan = []
+        n = self.videos.n_frames
+        gap = max(n // cfg.repeat, 1)
+        for vid in self.rng.randint(0, self.videos.n_videos,
+                                    size=cfg.batch_size):
+            for i in range(cfg.repeat):
+                fid = min(gap * i + self.rng.randint(0, gap), n - 1)
+                plan.append((int(vid), int(fid),
+                             self.rng.uniform(1.2, 1.5, size=(2,))))
+        return plan
+
+    def load_item(self, vid: int, fid: int, scale):
+        cfg = self.cfg
+        img, mask, depth, foc, pp = self.videos.render_frame(vid, fid)
+        out = crop_frame(img, mask, depth if cfg.use_depth else None,
+                         foc, pp, cfg.img_size, scale)
+        out["idx"] = np.int32(vid)
+        out["frame_idx"] = np.int32(fid)
+        out["occ"] = np.zeros_like(out["mask"])
+        return out

@@ -1,6 +1,7 @@
-"""MeshNet composition and the eval forward (counterpart of
-selfcorr_tpu/models/meshnet.py: MeshConstants, build_mesh_constants,
-Networks, preprocess, forward_test).
+"""MeshNet composition, the training forward and the eval forward
+(counterpart of selfcorr_tpu/models/meshnet.py: MeshConstants,
+build_mesh_constants, Networks, preprocess, weights_schedule,
+render_products, forward_train, forward_test).
 
 `MeshNet` holds the trainable nets under `encoder` and the learnable
 canonical shape as `mesh.mean_v`, so its state_dict uses the reference
@@ -8,20 +9,31 @@ checkpoint's names (see utils/weight_convert.py).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from selfcorr_tpu_torch.configs import Config
+from selfcorr_tpu_torch.losses import (DIVIDE_FNS, camera_loss, deform_loss,
+                                       depth_loss, depth_loss_chamfer,
+                                       flatten_loss, imatch_loss,
+                                       laplacian_loss, mask_pyramid_loss,
+                                       match_loss, pullfar_loss,
+                                       symmetry_loss, texture_loss)
 from selfcorr_tpu_torch.models import correspondence as corr
 from selfcorr_tpu_torch.models.heads import PosePredictor, ShapeDeformer
 from selfcorr_tpu_torch.models.pointnet import MeshEncoder
-from selfcorr_tpu_torch.models.resnet import Backbone, FPNDecoder
+from selfcorr_tpu_torch.models.resnet import Backbone, FPNDecoder, frozen_stats
 from selfcorr_tpu_torch.ops import geometry as G
 from selfcorr_tpu_torch.ops import mesh_ops as M
-from selfcorr_tpu_torch.ops.image_ops import color_jitter, grid_sample
+from selfcorr_tpu_torch.ops.image_ops import (color_jitter, grid_sample,
+                                              jitter_factors)
+from selfcorr_tpu_torch.ops.rasterizer import render_fused
+from selfcorr_tpu_torch.ops.rasterizer.common import EYE_OFFSET
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -118,6 +130,205 @@ def preprocess(img, jitter=None, generator=None):
     mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
     std = torch.as_tensor(IMAGENET_STD, device=img.device)
     return (x - mean) / std
+
+
+class DeviceConstants(NamedTuple):
+    """The MeshConstants the training forward reads, on the device."""
+    faces: torch.Tensor          # (F, 3) long
+    symm_rots: torch.Tensor      # (k, 3, 3)
+    laplacian: torch.Tensor      # (V, V)
+    flatten_quads: tuple         # 4 x (E,) long
+
+
+def device_constants(constants: MeshConstants, device) -> DeviceConstants:
+    def t(x, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return DeviceConstants(
+        faces=t(constants.faces, torch.long),
+        symm_rots=t(constants.symm_rots), laplacian=t(constants.laplacian),
+        flatten_quads=tuple(t(q, torch.long)
+                            for q in constants.flatten_quads))
+
+
+class StepDraws(NamedTuple):
+    """The random draws of one training forward, in the order of the JAX
+    package's jax.random.split(rng, 4) (meshnet.py:211): the color jitter
+    of the input, the symmetry loss's surface samples, the rotation cycle's
+    angle, and the color jitter of the rotated batch."""
+    jitter: torch.Tensor         # (4,) brightness, contrast, saturation, hue
+    sym_u: torch.Tensor          # (B, symmetry_npts, 1)
+    sym_ub: torch.Tensor         # (B, symmetry_npts, 2)
+    angle: torch.Tensor          # () degrees
+    cycle_jitter: torch.Tensor   # (4,)
+    chamfer_u: torch.Tensor | None = None   # (B, 2000, 1), depth chamfer
+    chamfer_ub: torch.Tensor | None = None  # (B, 2000, 2)
+
+
+def draw_step(generator: torch.Generator, cfg: Config, b: int) -> StepDraws:
+    """One training forward's draws, on the CPU, from `generator`."""
+    jitter = jitter_factors(generator)
+    sym_u, sym_ub = M.surface_draws(generator, b, cfg.symmetry_npts)
+    angle = corr.rotation_angle(generator)
+    cycle_jitter = jitter_factors(generator)
+    cu = cub = None
+    if cfg.use_depth and cfg.depth_loss_chamfer:
+        cu, cub = M.surface_draws(generator, b, 2000)
+    return StepDraws(jitter, sym_u, sym_ub, angle, cycle_jitter, cu, cub)
+
+
+def weights_schedule(step: int, cfg: Config) -> dict:
+    """Per-iteration loss weights: linear from the base weight toward
+    decay_ratio x base, down for the regularizers and cycle losses, up for
+    match / imatch."""
+    frac = min(max(step / cfg.total_iters, 0.0), 1.0)
+
+    def down(w):
+        return frac * (cfg.decay_ratio * w - w) + w
+
+    def up(w):
+        return frac * (w - cfg.decay_ratio * w) + cfg.decay_ratio * w
+
+    return dict(
+        mask=cfg.mask_wt, tex=cfg.tex_wt, depth=cfg.depth_wt,
+        triangle=down(cfg.triangle_wt), symmetry=down(cfg.symmetry_wt),
+        cycle=down(cfg.cycle_loss_wt),
+        cycle_pt=down(cfg.cycle_loss_pretrain_wt),
+        match=up(cfg.match_wt), imatch=up(cfg.imatch_wt),
+        pullfar=cfg.pullfar_wt, deform=cfg.deform_wt, camera=cfg.camera_wt)
+
+
+def render_products(pred_v, faces, tex, foc_crop, pp_crop, rotation,
+                    translation, cfg: Config) -> dict:
+    """Camera transform, one fused render (kernels B1 forward and B2
+    backward on the card) and the analytic per-vertex image matches and
+    visibility weights."""
+    verts_cam = G.rigid_transform(pred_v, rotation, translation)
+    proj = G.project_ndc(verts_cam, pp_crop, foc_crop, flip_y=True)
+    rast = torch.cat([proj[..., :2], proj[..., 2:] + EYE_OFFSET], -1)
+    out = render_fused(rast[:, faces], tex[:, faces],
+                       pred_v.detach()[:, faces], cfg.img_size)
+    depth = out["depth"] if cfg.use_depth else out["depth"].detach()
+
+    # analytic projected vertices (no y flip: image convention)
+    imatch_gt = G.project_ndc(verts_cam, pp_crop, foc_crop,
+                              flip_y=False)[..., :2].detach()
+    vert_depth = verts_cam[..., 2].detach()
+    depth_at = grid_sample(depth.detach()[..., None], imatch_gt)[..., 0]
+    depth_weight = torch.exp(-5.0 * F.relu(vert_depth - depth_at))
+    return dict(mask_render=out["alpha1"], tex_render=out["tex"],
+                tex_mask=out["alpha2"], depth_render=depth,
+                depth_mask=out["alpha1"], match_gt=out["match"],
+                match_mask=out["alpha1"], imatch_gt=imatch_gt,
+                depth_weight=depth_weight)
+
+
+def forward_train(model: MeshNet, dino, batch: dict, dc: DeviceConstants,
+                  cfg: Config, step: int, draws: StepDraws):
+    """One training forward (selfcorr_tpu/models/meshnet.py:191-356):
+    returns (total_loss, aux dict of scalar tensors). `model` is in train
+    mode and its BatchNorm running statistics move once, on this batch;
+    `dino` is the frozen DINO trunk. Terms whose weight is statically zero
+    are skipped and logged as 0."""
+    w = weights_schedule(step, cfg)
+    img, mask = batch["img"], batch["mask"]
+    b = img.shape[0]
+    zero = torch.zeros((), device=img.device)
+    faces = dc.faces
+    mean_v = model.mesh.mean_v[None].expand(b, -1, -1)
+    if cfg.shape_prior and not cfg.prior_deform:
+        mean_v = mean_v.detach()
+
+    img_feat, mesh_feat, pred_v, rotation, translation, _ = model.encoder(
+        preprocess(img, draws.jitter), mean_v, batch["pp_crop"],
+        batch["foc_crop"])
+    meshgrid = corr.make_meshgrid(cfg.corr_h, cfg.corr_w, device=img.device)
+    _, match_map, imatch, _ = corr.dual_softmax_match(
+        img_feat, mesh_feat, mask, pred_v, meshgrid, cfg.tau_img,
+        cfg.tau_mesh, cfg.corr_h, cfg.corr_w)
+    tex = grid_sample(img, imatch)
+    r = render_products(pred_v, faces, tex, batch["foc_crop"],
+                        batch["pp_crop"], rotation, translation, cfg)
+
+    occ = batch.get("occ") if cfg.use_occ else None
+    mask_l = w["mask"] * mask_pyramid_loss(mask, r["mask_render"], occ).mean()
+    tex_l = (w["tex"] * texture_loss(img, mask, r["tex_render"],
+                                     r["tex_mask"], occ).mean()
+             if cfg.tex_wt != 0.0 else zero)
+    match_l = (w["match"] * match_loss(match_map, r["match_gt"],
+                                       r["match_mask"], mask).mean()
+               if cfg.match_wt != 0.0 else zero)
+    imatch_l = (w["imatch"] * imatch_loss(imatch, r["imatch_gt"],
+                                          r["depth_weight"]).mean()
+                if cfg.imatch_wt != 0.0 else zero)
+    total = mask_l + tex_l + match_l + imatch_l
+    aux = dict(mask_loss=mask_l, texture_loss=tex_l, match_loss=match_l,
+               imatch_loss=imatch_l)
+
+    if cfg.use_depth:
+        if cfg.depth_loss_chamfer:
+            depth_sub, _ = depth_loss_chamfer(
+                pred_v, faces, batch["depth"], r["depth_render"],
+                r["depth_mask"], mask, batch["pp_crop"], batch["foc_crop"],
+                rotation, translation, u=draws.chamfer_u,
+                ub=draws.chamfer_ub)
+        else:
+            depth_sub, _ = depth_loss(batch["depth"], r["depth_render"],
+                                      r["depth_mask"], mask)
+        aux["depth_loss"] = w["depth"] * depth_sub.mean()
+        total = total + aux["depth_loss"]
+
+    symm_l = (w["symmetry"] * symmetry_loss(
+        pred_v, faces, dc.symm_rots, cfg.symmetry_npts, u=draws.sym_u,
+        ub=draws.sym_ub) if cfg.symmetry_wt != 0.0 else zero)
+    n_v = pred_v.shape[1]
+    tri_l = w["triangle"] * laplacian_loss(pred_v, dc.laplacian) * n_v / 64.0
+    if cfg.flatten_loss:
+        tri_l = tri_l + w["triangle"] * flatten_loss(
+            pred_v, dc.flatten_quads) * 0.1 * math.sqrt(n_v / 64.0)
+    pull_l = w["pullfar"] * pullfar_loss(translation)
+    deform_l = w["deform"] * deform_loss(pred_v, mean_v)
+    total = total + symm_l + tri_l + pull_l + deform_l
+    aux.update(symmetry_loss=symm_l, triangle_loss=tri_l,
+               pullfar_loss=pull_l, deform_loss=deform_l)
+
+    # frozen-DINO cross-frame cycle loss; pairs are formed on the batch
+    divide = DIVIDE_FNS[cfg.divide_fn]
+    rep = cfg.repeat
+    bs = b // rep
+    cyc_pt = cyc = zero
+    if cfg.cycle_loss_pretrain_wt != 0.0:
+        with torch.no_grad():
+            dino_feat = dino(img)
+        dino_feat = dino_feat.reshape(b, -1, dino_feat.shape[-1])
+        cyc_pt, _ = corr.dino_cycle_loss(
+            divide(dino_feat, bs, rep), divide(mask, bs, rep),
+            divide(r["depth_weight"], bs, rep), divide(img_feat, bs, rep),
+            divide(mesh_feat, bs, rep), meshgrid, cfg.tau_img, cfg.tau_mesh,
+            cfg.corr_h, cfg.corr_w, cfg.pretrain_k)
+        cyc_pt = w["cycle_pt"] * cyc_pt
+
+    # rotation-augmentation cycle loss: the rotated batch is normalized with
+    # its own statistics, which do not enter the running statistics
+    def encode_fn(x):
+        x = preprocess(x, draws.cycle_jitter)
+        with frozen_stats(model.encoder):
+            return model.encoder.encode_img(x)[1]
+
+    if cfg.cycle_loss_wt != 0.0:
+        cyc = w["cycle"] * corr.rotation_cycle_loss(
+            draws.angle, img, mask, img_feat, encode_fn, meshgrid,
+            cfg.tau_mesh, cfg.corr_h, cfg.corr_w)[0]
+    total = total + cyc_pt + cyc
+    aux.update(cycle_loss_pretrain=cyc_pt, cycle_loss=cyc)
+
+    if cfg.camera_loss:
+        rot2 = torch.roll(rotation.detach().reshape(-1, rep, 3, 3), -1,
+                          dims=1).reshape(-1, 3, 3)
+        aux["cam_loss"] = w["camera"] * camera_loss(rotation, rot2).mean()
+        total = total + aux["cam_loss"]
+
+    aux["total_loss"] = total
+    return total, aux
 
 
 @torch.no_grad()

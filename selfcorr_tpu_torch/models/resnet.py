@@ -6,14 +6,61 @@ NCHW inside. Parameter names follow torchvision's resnet18 and the
 reference decoder (conv2DBatchNormRelu `cbr_unit.{0,1}`), the names
 selfcorr_tpu/utils/weight_convert.py convert_meshnet reads, so a reference
 checkpoint maps onto this module by a rename.
+
+BatchNorm follows flax nn.BatchNorm (momentum 0.9, eps 1e-5): in train mode
+it normalizes with the batch statistics and moves the running variance
+toward the BIASED batch variance (torch's BatchNorm2d would use the unbiased
+one); `frozen_stats` runs train-mode normalization without touching the
+running statistics.
 """
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 from selfcorr_tpu_torch.ops.image_ops import resize_bilinear
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm2d with flax's train-mode running statistics: running =
+    0.9 * running + 0.1 * batch, the batch variance biased (divided by n).
+    Eval mode normalizes with the running statistics, as BatchNorm2d."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-5, momentum=0.1)
+        self.update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                self.running_mean.mul_(1.0 - self.momentum).add_(
+                    mean, alpha=self.momentum)
+                self.running_var.mul_(1.0 - self.momentum).add_(
+                    var, alpha=self.momentum)
+        return y
+
+
+@contextlib.contextmanager
+def frozen_stats(module: nn.Module):
+    """Inside the block, train-mode BatchNorm layers of `module` normalize
+    with the batch statistics but leave their running statistics alone."""
+    layers = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    saved = [m.update_stats for m in layers]
+    for m in layers:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, u in zip(layers, saved):
+            m.update_stats = u
 
 
 def _nchw(x):
@@ -28,14 +75,14 @@ class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn1 = BatchNorm(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn2 = BatchNorm(cout)
         self.downsample = None
         if cin != cout or stride != 1:
             self.downsample = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride, bias=False),
-                nn.BatchNorm2d(cout, eps=1e-5))
+                BatchNorm(cout))
 
     def forward(self, x):  # NCHW
         y = F.relu(self.bn1(self.conv1(x)))
@@ -51,7 +98,7 @@ class ResNet18(nn.Module):
     def __init__(self):
         super().__init__()
         self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=1e-5)
+        self.bn1 = BatchNorm(64)
         cin = 64
         for i, (cout, stride) in enumerate([(64, 1), (128, 2), (256, 2),
                                             (512, 2)]):
@@ -86,7 +133,7 @@ class ConvBnRelu(nn.Module):
         super().__init__()
         self.cbr_unit = nn.Sequential(nn.Conv2d(cin, cout, 3, 1, 1,
                                                 bias=False),
-                                      nn.BatchNorm2d(cout, eps=1e-5))
+                                      BatchNorm(cout))
 
     def forward(self, x):  # NHWC -> NHWC
         return _nhwc(F.relu(self.cbr_unit(_nchw(x))))

@@ -91,3 +91,25 @@ def symmetry_rotations(symmetry_idx: int, division: int = 17) -> np.ndarray:
 def base_rotation(flat9) -> np.ndarray:
     """Canonical-frame alignment matrix from the flat 9-list flag."""
     return np.array([float(x) for x in flat9], np.float32).reshape(3, 3)
+
+
+def camera_geodesic(m1: torch.Tensor, m2: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle between rotation matrices (..., 3, 3)."""
+    m = torch.matmul(m1, m2.transpose(-1, -2))
+    cos = (m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2] - 1.0) / 2.0
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))
+
+
+def depth_to_point_cloud(depth: torch.Tensor, pp: torch.Tensor,
+                         foc: torch.Tensor) -> torch.Tensor:
+    """Back-project a (B, H, W) depth map with NDC intrinsics ->
+    (B, H*W, 3); pixel centres on the NDC grid, X = (u - pp_x) Z / f_x."""
+    b, h, w = depth.shape
+    dev, dt = depth.device, depth.dtype
+    u = (torch.arange(w, dtype=dt, device=dev) + 0.5) * 2.0 / w - 1.0
+    v = (torch.arange(h, dtype=dt, device=dev) + 0.5) * 2.0 / h - 1.0
+    vv, uu = torch.meshgrid(v, u, indexing="ij")
+    z = depth
+    x = (uu[None] - pp[:, 0, None, None]) * z / foc[:, 0, None, None]
+    y = (vv[None] - pp[:, 1, None, None]) * z / foc[:, 1, None, None]
+    return torch.stack([x, y, z], dim=-1).reshape(b, -1, 3)

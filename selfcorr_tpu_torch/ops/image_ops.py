@@ -4,6 +4,9 @@ selfcorr_tpu/ops/image_ops.py).
   resize_nearest   torch nearest convention: source index floor(i * in/out)
   resize_bilinear  half-pixel bilinear, no antialias (F.interpolate
                    align_corners=False)
+  downsample_area  average pooling by an integer factor
+  upsample_repeat  pixel duplication by an integer factor
+  rotate_fast      quarter turn + Paeth's three shears as banded products
   grid_sample      F.grid_sample semantics, align_corners=False, zero pad
   color_jitter     brightness -> contrast -> saturation -> hue, one factor
                    draw per call for the whole batch
@@ -33,6 +36,73 @@ def resize_bilinear(img: torch.Tensor, out_hw) -> torch.Tensor:
     x = F.interpolate(x, size=tuple(out_hw), mode="bilinear",
                       align_corners=False, antialias=False)
     return x.permute(0, 2, 3, 1)
+
+
+def downsample_area(img: torch.Tensor, factor: int) -> torch.Tensor:
+    """Average-pool (..., H, W, C) by an integer factor (torch 'area'
+    downsampling)."""
+    if factor == 1:
+        return img
+    *lead, h, w, c = img.shape
+    x = img.reshape(*lead, h // factor, factor, w // factor, factor, c)
+    return x.mean(dim=(-4, -2))
+
+
+def upsample_repeat(img: torch.Tensor, factor: int) -> torch.Tensor:
+    """Duplicate each pixel of (..., H, W, C) factor x factor times (torch
+    'area' upsampling by an integer factor)."""
+    if factor == 1:
+        return img
+    x = torch.repeat_interleave(img, factor, dim=-3)
+    return torch.repeat_interleave(x, factor, dim=-2)
+
+
+def _shear_matrix(n: int, shifts: torch.Tensor, mode: str) -> torch.Tensor:
+    """(R, N_in, N_out) 1-D resampling operators: out[., j] = sum_i
+    T[r, i, j] in[., i], sampling source index j + shifts[r] with a tent
+    kernel (bilinear) or one-hot (nearest), zero outside."""
+    dev = shifts.device
+    i = torch.arange(n, dtype=torch.float32, device=dev)[None, :, None]
+    j = torch.arange(n, dtype=torch.float32, device=dev)[None, None, :]
+    src = j + shifts[:, None, None]
+    if mode == "nearest":
+        return (torch.round(src) == i).to(torch.float32)
+    return torch.clamp(1.0 - torch.abs(i - src), min=0.0)
+
+
+def rotate_fast(img: torch.Tensor, angle_deg, mode: str = "bilinear"
+                ) -> torch.Tensor:
+    """Rotate square (B, H, W, C) images counter-clockwise by angle_deg
+    about the centre, zero fill, as the JAX package's rotate_fast
+    (selfcorr_tpu/ops/image_ops.py:174-225): an exact quarter turn, then
+    Paeth's three shears as banded one-hot products (torch.einsum). The
+    three-pass filter differs slightly from direct bilinear sampling, so
+    torchvision's rotate is no substitute. angle_deg is a float or a
+    0-d tensor (the injectable draw)."""
+    b, h, w, c = img.shape
+    if h != w:
+        raise ValueError("rotate_fast needs square images")
+    # the angle's arithmetic runs in float32 on the host (no device sync)
+    theta = torch.deg2rad(torch.as_tensor(angle_deg, dtype=torch.float32)
+                          .cpu())
+    turns = torch.floor((theta + torch.pi / 4) / (torch.pi / 2))
+    k = int(turns) % 4
+    phi = theta - (torch.pi / 2) * turns
+    if k == 1:      # out[r, c] = in[c, h-1-r]
+        img = torch.flip(img.transpose(1, 2), dims=(1,))
+    elif k == 2:
+        img = torch.flip(img, dims=(1, 2))
+    elif k == 3:    # out[r, c] = in[h-1-c, r]
+        img = torch.flip(img.transpose(1, 2), dims=(2,))
+    a = (-torch.tan(phi / 2.0)).to(img.device)
+    bb = torch.sin(phi).to(img.device)
+    rows = torch.arange(h, dtype=torch.float32, device=img.device) \
+        - (h - 1) / 2.0
+    tx = _shear_matrix(w, a * rows, mode)    # x-shear per row
+    ty = _shear_matrix(h, bb * rows, mode)   # y-shear per column
+    x = torch.einsum("brid,rij->brjd", img, tx)
+    x = torch.einsum("bicd,cij->bjcd", x, ty)
+    return torch.einsum("brid,rij->brjd", x, tx)
 
 
 def grid_sample(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,11 @@
-"""Host-side mesh builders (counterpart of selfcorr_tpu/ops/mesh_ops.py):
-OBJ loading, prior normalization, icosphere, graph Laplacian and the
-flatten-loss quadruples that build_mesh_constants needs. Pure numpy."""
+"""Mesh builders and mesh math (counterpart of
+selfcorr_tpu/ops/mesh_ops.py): host-side numpy builders (OBJ loading, prior
+normalization, icosphere, graph Laplacian, flatten-loss quadruples) and the
+device-side face gathers, areas and area-weighted surface sampling."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def icosphere(subdivisions: int = 3):
@@ -98,3 +100,69 @@ def flatten_quads(faces: np.ndarray):
         quads.append((u, v, opp[0], opp[1]))
     q = np.asarray(quads, np.int32).reshape(-1, 4)
     return tuple(q[:, k].copy() for k in range(4))
+
+
+# ---------------------------------------------------------------------------
+# Device-side mesh math
+# ---------------------------------------------------------------------------
+
+def face_vertices(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """(B, V, 3), (F, 3) -> (B, F, 3, 3) per-face corner coordinates."""
+    return verts[:, faces]
+
+
+def face_areas(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
+    """(B, V, 3), (F, 3) -> (B, F) triangle areas."""
+    fv = face_vertices(verts, faces)
+    e1 = fv[..., 1, :] - fv[..., 0, :]
+    e2 = fv[..., 2, :] - fv[..., 0, :]
+    return 0.5 * torch.linalg.vector_norm(torch.linalg.cross(e1, e2, dim=-1),
+                                          dim=-1)
+
+
+def surface_draws(generator: torch.Generator, b: int, num_samples: int):
+    """The uniform draws of sample_surface, on the CPU: u (B, S, 1) picks
+    the face, ub (B, S, 2) the point in it."""
+    u = torch.rand((b, num_samples, 1), generator=generator)
+    ub = torch.rand((b, num_samples, 2), generator=generator)
+    return u, ub
+
+
+def sample_surface(verts: torch.Tensor, faces: torch.Tensor,
+                   num_samples: int, u: torch.Tensor | None = None,
+                   ub: torch.Tensor | None = None,
+                   generator: torch.Generator | None = None) -> torch.Tensor:
+    """Area-weighted uniform surface sampling -> (B, num_samples, 3),
+    differentiable in the vertices (the face pick is not).
+
+    The JAX package picks face f for draw u where cum_{f-1} <= u * total <
+    cum_f (an inverse-CDF interval mask, selfcorr_tpu/ops/mesh_ops.py:200);
+    here that face is found by searchsorted over the same cumulative areas,
+    so the same u picks the same face and a zero-area face, whose interval is
+    empty, is never picked. A draw that rounds onto the total matches no
+    interval and, as in the JAX package, samples the origin. The point in
+    the face folds ub onto the triangle: w = (1 - sqrt(ub0),
+    sqrt(ub0) (1 - ub1), sqrt(ub0) ub1). u and ub are the draws (see
+    surface_draws); absent, they come from `generator`."""
+    b = verts.shape[0]
+    if u is None or ub is None:
+        if generator is None:
+            raise ValueError("sample_surface needs draws or a generator")
+        u, ub = surface_draws(generator, b, num_samples)
+    u = u.to(verts.device)
+    ub = ub.to(verts.device)
+    cum = torch.cumsum(face_areas(verts, faces).detach(), dim=-1)   # (B, F)
+    target = (u * cum[:, -1:, None])[..., 0]                        # (B, S)
+    idx = torch.searchsorted(cum.contiguous(), target.contiguous(),
+                             right=True)
+    hit = (idx < cum.shape[1])[..., None]
+    fv9 = face_vertices(verts, faces).reshape(b, -1, 9)
+    tri = torch.gather(fv9, 1, idx.clamp(max=cum.shape[1] - 1)[..., None]
+                       .expand(-1, -1, 9)) * hit
+    tri = tri.reshape(b, num_samples, 3, 3)
+    su = torch.sqrt(ub[..., 0])
+    w0 = 1.0 - su
+    w1 = su * (1.0 - ub[..., 1])
+    w2 = su * ub[..., 1]
+    return (w0[..., None] * tri[:, :, 0] + w1[..., None] * tri[:, :, 1]
+            + w2[..., None] * tri[:, :, 2])

@@ -114,11 +114,13 @@ def pack_face_constants(face_verts: torch.Tensor) -> FaceConstants:
 def pack_constants(face_verts: torch.Tensor, soft_tex: torch.Tensor,
                    hard_tex: torch.Tensor) -> torch.Tensor:
     """(B, F, 3, 3) verts + per-corner textures -> (B, F, K) float32 in the
-    slot layout above; slots N_SLOTS..K-1 are zero."""
+    slot layout above; slots N_SLOTS..K-1 are zero. Differentiable in the
+    vertices and the soft texture; the hard texture is detached, as in
+    pallas_raster.py:165 (the match render takes no gradient)."""
     b, f = face_verts.shape[:2]
     c = pack_face_constants(face_verts)
     cols = [c.w_a.reshape(b, f, 9), c.seg.reshape(b, f, 9), c.e2,
             c.pc.reshape(b, f, 9), c.inv_z, c.z, c.front[..., None], c.bbox,
-            soft_tex.reshape(b, f, 9), hard_tex.reshape(b, f, 9)]
+            soft_tex.reshape(b, f, 9), hard_tex.detach().reshape(b, f, 9)]
     packed = torch.cat(cols, dim=-1).to(torch.float32)
     return torch.nn.functional.pad(packed, (0, K - N_SLOTS)).contiguous()

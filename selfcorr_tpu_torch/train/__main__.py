@@ -1,0 +1,6 @@
+import sys
+
+from selfcorr_tpu_torch.train.loop import main
+
+if __name__ == "__main__":
+    main(sys.argv)

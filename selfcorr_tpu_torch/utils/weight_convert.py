@@ -11,6 +11,11 @@ rename. Layout rules:
   flax Dense on points (I, O)     -> Conv1d(k=1) weight (O, I, 1)
   BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
                                          running_var
+  LayerNorm scale / bias           -> weight / bias
+
+from_jax_dino_params does the same for the frozen DINO trunk
+(models/vit.DinoViTS8), whose names are the released checkpoint's, the keys
+selfcorr_tpu/utils/weight_convert.py convert_dino_vits8 (:76) reads.
 """
 from __future__ import annotations
 
@@ -136,4 +141,27 @@ def from_jax_params(params: Dict[str, Any],
                             shape_deformer_state(net["shape_predictor"])))
     sd.update(_prefixed("encoder.pose_predictor.",
                         pose_predictor_state(net["pose_predictor"])))
+    return sd
+
+
+def from_jax_dino_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX models/vit.DinoViTS8 params -> DinoViTS8 state_dict
+    (patch_embed.proj.*, cls_token, pos_embed, blocks.{i}.*)."""
+    sd: dict = {"patch_embed.proj.weight": conv_w(
+                    params["patch_embed"]["kernel"]),
+                "patch_embed.proj.bias": _t(params["patch_embed"]["bias"]),
+                "cls_token": _t(params["cls_token"]),
+                "pos_embed": _t(params["pos_embed"])}
+    i = 0
+    while f"block{i}" in params:
+        p = params[f"block{i}"]
+        dst = f"blocks.{i}."
+        for norm in ("norm1", "norm2"):
+            sd[dst + norm + ".weight"] = _t(p[norm]["scale"])
+            sd[dst + norm + ".bias"] = _t(p[norm]["bias"])
+        _dense(sd, dst + "attn.qkv.", p["attn"]["qkv"])
+        _dense(sd, dst + "attn.proj.", p["attn"]["proj"])
+        _dense(sd, dst + "mlp.fc1.", p["mlp"]["fc1"])
+        _dense(sd, dst + "mlp.fc2.", p["mlp"]["fc2"])
+        i += 1
     return sd

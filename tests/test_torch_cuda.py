@@ -1,6 +1,8 @@
-"""Tests of the port that need a CUDA card: the fused-rasterizer kernel
-against its plain PyTorch version, and the predict path on the card against
-the same path on the CPU. They skip without a card.
+"""Tests of the port that need a CUDA card: the fused-rasterizer forward
+(B1) and backward (B2) kernels and the DINO attention kernel (B3) against
+their plain PyTorch versions, the predict path on the card against the same
+path on the CPU, and one full-width train step on the card. They skip
+without a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch; tests/conftest.py imports JAX, so skip it there:
@@ -17,9 +19,10 @@ import torch
 from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.data.loader import TestLoader
 from selfcorr_tpu_torch.eval.tester import Tester, make_test_dataset
+from selfcorr_tpu_torch.ops import attention as A
 from selfcorr_tpu_torch.ops.rasterizer import api, common as C, kernel
 from selfcorr_tpu_torch.ops.rasterizer.reference import (
-    PLANES, raster_fused_fwd_plain)
+    BWD_GRADS, PLANES, raster_fused_bwd_plain, raster_fused_fwd_plain)
 from selfcorr_tpu_torch.utils.device import set_fp32_precision
 
 # kernel vs plain, absolute: the on-chip gate's bounds of the JAX package
@@ -31,6 +34,7 @@ ATOL = {"alpha1": 2e-3, "alpha2": 2e-3, "depth": 1.4e-2,
         "m_d": 1e-4, "m_t": 1e-4}
 S_RTOL = 1e-3
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(dataset_name="synthetic", img_size=32, corr_h=8, corr_w=8,
              subdivide=1, batch_size=4, repeat=1, symmetry_idx=0,
              use_depth=True, n_corr_feat=16, codedim=8, depth_offset=5.0,
@@ -117,3 +121,78 @@ def test_predict_on_card_matches_cpu(cuda, tmp_path):
         torch.testing.assert_close(pg[k].cpu(), pc[k], atol=1e-3, rtol=0)
     for k in ("bbox9", "verts"):
         torch.testing.assert_close(fg[k].cpu(), fc[k], atol=1e-3, rtol=0)
+
+
+def test_backward_kernel_matches_plain_and_repeats_bitwise(cuda):
+    """B2 against its plain version, every slot within 1e-4 of the slot's
+    largest value (the same per-pair arithmetic at -fmad=false; only the
+    order of the per-face sums differs), and a second launch identical."""
+    sg = (1e-4, 1e-3, 1e-4, 1e-2)
+    consts = C.pack_constants(*make_scene(9, 3, 300)).to(cuda)
+    planes = raster_fused_fwd_plain(consts, 48, *sg)
+    g = torch.Generator().manual_seed(0)
+    grads = {n: torch.randn(3, 48, 48, generator=g).to(cuda)
+             for n in BWD_GRADS}
+    before = kernel.LAUNCHES["raster_fused_bwd"]
+    got = api.raster_fused_bwd(consts, planes, grads, 48, *sg)
+    again = kernel.raster_fused_bwd_cuda(consts, planes, grads, 48, *sg)
+    assert kernel.LAUNCHES["raster_fused_bwd"] == before + 2
+    ref = raster_fused_bwd_plain(consts, planes, grads, 48, *sg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    lim = 1e-4 * ref.abs().amax(dim=(0, 1))
+    assert bool(((got - ref).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("t,tail", [(1, False), (65, False), (129, False),
+                                    (1025, False), (1025, True)])
+def test_attention_kernel_matches_plain(cuda, t, tail):
+    """B3 against its plain version on strided views of one qkv tensor:
+    within 2^-7 |plain| + 2^-12 max|v| (an output one bf16 ulp apart; the
+    floor for a p one bf16 ulp apart). With `tail`, q >= 0 and k <= 0, so
+    every real score is far below the 0 that an unmasked zero padding key
+    of the last tile would score."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    qkv = torch.randn((2, t, 3, 6, 64), generator=g, device=cuda)
+    if tail:
+        qkv[:, :, 0] = qkv[:, :, 0].abs()
+        qkv[:, :, 1] = -qkv[:, :, 1].abs()
+    qkv = qkv.bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    before = A.LAUNCHES["dino_flash_attn"]
+    got = A.attention(q, k, v)
+    assert A.LAUNCHES["dino_flash_attn"] == before + 1
+    ref = A.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    lim = 2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * float(
+        v.float().abs().max())
+    assert bool(((got.float() - ref.float()).abs() <= lim).all())
+    with pytest.raises(ValueError, match="CPU reference"):
+        A.attention(q.float(), k.float(), v.float())
+
+
+def test_full_width_train_step_on_card(cuda, tmp_path):
+    """One train step at Wild6D-laptop width (img 256, batch 8 x 4, laptop
+    prior) on the card: finite metrics, and each kernel launched."""
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.data.loader import stack_items
+    from selfcorr_tpu_torch.models.meshnet import draw_step
+    from selfcorr_tpu_torch.train.loop import Trainer, make_train_dataset
+    from selfcorr_tpu_torch.train.step import train_step
+    cfg = parse_args(["--flagfile", os.path.join(ROOT, "config/wild6d/"
+                                                 "laptop.txt"),
+                      "--dataset_name", "synthetic",
+                      "--checkpoint_dir", str(tmp_path)])
+    trainer = Trainer(cfg)
+    ds = make_train_dataset(cfg)
+    batch = trainer.upload(stack_items([ds.load_item(*a)
+                                        for a in ds.sample_plan(0)]))
+    draws = draw_step(torch.Generator().manual_seed(0), cfg, 32)
+    kernel.reset_launches()
+    A.reset_launches()
+    metrics = train_step(trainer.state, batch, draws, cfg)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+    assert float(metrics["bad_grad"]) == 0.0 and trainer.state.step == 1
+    assert kernel.LAUNCHES == {"raster_fused_fwd": 1, "raster_fused_bwd": 1}
+    assert A.LAUNCHES == {"dino_flash_attn": 9}

@@ -41,6 +41,15 @@ def imported_roots(path):
 def test_port_imports_no_jax_cv2_or_jax_package():
     files = port_files()
     assert len(files) > 20
+    names = {os.path.relpath(p, ROOT) for p in files}
+    assert {"selfcorr_tpu_torch/train/step.py",
+            "selfcorr_tpu_torch/train/optim.py",
+            "selfcorr_tpu_torch/train/loop.py",
+            "selfcorr_tpu_torch/models/vit.py",
+            "selfcorr_tpu_torch/ops/attention.py",
+            "selfcorr_tpu_torch/ops/knn.py",
+            "selfcorr_tpu_torch/losses/regularizers.py",
+            "selfcorr_tpu_torch/utils/cuda_build.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -64,6 +73,15 @@ def test_predict_without_cpu_flag_needs_cuda():
                       "--dataset_name", "synthetic"])
 
 
+def test_train_without_cpu_flag_needs_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from selfcorr_tpu_torch.train.loop import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["train", "--flagfile", LAPTOP, "--dataset_name", "synthetic",
+              "--total_iters", "1"])
+
+
 def test_model_path_is_a_later_slice(tmp_path):
     from selfcorr_tpu_torch.configs import Config
     from selfcorr_tpu_torch.eval.tester import Tester
@@ -82,8 +100,12 @@ def test_only_synthetic_eval_data_is_ported(tmp_path):
 def test_kernel_is_not_built_at_import():
     """Importing the port (in a fresh interpreter) builds nothing."""
     code = ("import selfcorr_tpu_torch.eval.tester\n"
+            "import selfcorr_tpu_torch.train.loop\n"
+            "from selfcorr_tpu_torch.ops import attention\n"
             "from selfcorr_tpu_torch.ops.rasterizer import kernel\n"
-            "assert kernel._lib is None\n"
+            "from selfcorr_tpu_torch.utils import cuda_build\n"
+            "assert kernel._lib is None and attention._fn is None\n"
+            "assert not cuda_build._loaded\n"
             "assert '-gencode=arch=compute_90a,code=sm_90a' in "
             "kernel.CUDA_FLAGS\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)

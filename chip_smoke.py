@@ -5,10 +5,10 @@
 
 Phases, in order; any failure exits non-zero:
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile the three kernels from the repo's sources, one nvcc per
-              source, all started together: B1 ops/rasterizer/csrc/
-              raster_fwd.cu, B2 ops/rasterizer/csrc/raster_bwd.cu, B3
-              ops/csrc/flash_attn.cu
+  2. build    compile the five kernels from the repo's sources, one nvcc per
+              source, all started together: in ops/rasterizer/csrc/ B1
+              raster_fwd.cu, B2 raster_bwd.cu, B1' raster_fwd_chunk.cu, B2'
+              raster_bwd_chunk.cu; B3 ops/csrc/flash_attn.cu
   3. B1       hold the rasterizer forward against its plain PyTorch version
               on the card, all 13 planes, at (a) the panel shape B=1 S=320
               (laptop prior), (b) the training-render shape B=8 S=256 (laptop
@@ -17,22 +17,35 @@ Phases, in order; any failure exits non-zero:
   4. B2       the rasterizer backward against its plain version at the same
               scenes, with seeded random cotangents on the 6 differentiable
               planes: every slot, and a second launch bit-identical
-  5. B3       the DINO attention against its plain version at the trunk's
+  5. B1', B2' the dense-chunk forward and backward against their plain
+              versions at the same scenes (a)-(c), B1' against B1 on the
+              same constants (whether the two are bit-identical is
+              recorded), a second B2' launch bit-identical; B1 / B1' and
+              B2 / B2' times side by side
+  6. texels   B1, B2, B1', B2' with surface texels at R = 6 (K = 192)
+              against their plain versions, second backward launches
+              bit-identical
+  7. B3       the DINO attention against its plain version at the trunk's
               shape (32, 6, 1025, 64) and at ragged T 1, 65, 129
-  6. predict  the predict path (selfcorr_tpu_torch.predict.main) on cuda at
+  8. predict  the predict path (selfcorr_tpu_torch.predict.main) on cuda at
               Wild6D-laptop width on the synthetic eval set with the render
               panels; launch counts are zeroed just before and read just
               after; then warm predict_batch FPS at batch 16 and forward_test
               on the card vs on the CPU
-  7. train    the training path (selfcorr_tpu_torch.train.loop.main) on cuda
-              at Wild6D-laptop width, batch 8 x 4 = 32, 6 steps; launch
-              counts zeroed just before and read just after (B1 = B2 = 6,
-              B3 = 54); every logged loss finite; then 5 timed warm steps and
-              a profile of one; then one step with the kernels and one with
-              the plain versions patched in here, from one state, batch and
-              set of draws, the DINO features computed once for both
-  8. report   every kernel held against its plain version at the main
-              paths' inputs; one JSON line per the kernel table, then the
+  9. train    the training path (selfcorr_tpu_torch.train.loop.main) on cuda
+              at Wild6D-laptop width, batch 8 x 4 = 32, three times, each
+              with the launch counts zeroed just before and read just after:
+              "train", the compact schedule, 6 steps (B1 = B2 = 6, B3 = 54);
+              "train_chunk", the dense-chunk schedule (api.COMPACT = False),
+              3 steps (B1' = B2' = 3, B1 = B2 = 0, B3 = 27);
+              "train_surface", --surface_texture --n_tex_sample 6, 3 steps
+              (B1 = B2 = 3, B3 = 27). Each: every logged loss finite; 5
+              timed warm steps and a profile of one; one step
+              with the kernels and one with the plain versions patched in
+              here, from one state, batch and set of draws, the DINO features
+              computed once for both
+ 10. report   every kernel held against its plain version at each training
+              path's inputs; one JSON line per the kernel table, then the
               result line
 
 Tolerances, B1 (kernel vs plain): alpha 2e-3, depth 1.4e-2 absolute; tex /
@@ -44,8 +57,10 @@ m_d / m_t 1e-4 absolute; the softmax sum planes s_d / s_t 1e-3 relative to
 max(1, |s|) (with gamma = 1e-4 one ulp of depth moves a softmax weight by
 ~1e-3).
 
-B2 (kernel vs plain): every slot within 1e-4 of that slot's largest plain
-value (the kernel repeats the plain version's per-pair arithmetic at
+B1' takes B1's tolerances against its own plain version, with and without
+texels.
+B2 and B2' (kernel vs plain): every slot within 1e-4 of that slot's largest
+plain value (the kernel repeats the plain version's per-pair arithmetic at
 -fmad=false; only the order of the per-face sums differs), and finite.
 B3 (kernel vs plain): |kernel - plain| <= 2^-7 |plain| + 2^-12 max|v|
 elementwise. The two take their f32 sums and exponentials in another order,
@@ -69,6 +84,7 @@ its update is not compared.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -114,7 +130,22 @@ OPS_PER_PAIR = {"cover": 97, "cover1": 6, "cover2": 6, "tex": 34, "depth": 28}
 # zero; they are the kernel's cost, not the function's, and are not
 # charged.)
 OPS_PER_PAIR_BWD = {"cover": 172, "cover1": 37, "cover2": 43}
+
+# With surface texels (tex_res = R > 0) the texture comes from one texel
+# instead of the interpolated corner colours: the texel pick (cell 8, fold
+# test 5, index 3, conversion and clamps 3: 19) replaces the interpolation
+# (15) in "tex" of the forward and in "cover2" of the backward, and the
+# backward's texture slots take one add per channel (3) instead of the 9
+# weighted accumulations (18) in "cover".
+OPS_PER_PAIR_TEX = dict(OPS_PER_PAIR, tex=38)
+OPS_PER_PAIR_BWD_TEX = {"cover": 157, "cover1": 37, "cover2": 47}
 B2_REL_TOL = 1e-4
+
+# the rasterizer kernels by schedule; each `name` has the wrapper
+# kernel.<name>_cuda and the plain version reference.<name>_plain
+FWD_KERNELS = ("raster_fused_fwd", "raster_fused_fwd_chunk")
+BWD_KERNELS = ("raster_fused_bwd", "raster_fused_bwd_chunk")
+SIGMAS = (1e-4, 1e-3, 1e-4, 1e-2)    # sigma1, sigma2, gamma_d, gamma_t
 
 TOL = {"alpha1": 2e-3, "alpha2": 2e-3, "depth": 1.4e-2,
        "m_d": 1e-4, "m_t": 1e-4}
@@ -229,21 +260,28 @@ def fwd_compare(ko, po):
     return errs, ok
 
 
-def hold(name, *args):
-    """Kernel `name` and its plain version on the same inputs: (the
-    kernel's output, its max |kernel - plain| (per plane for B1), whether
-    it is within the tolerance)."""
+def routes(name):
+    """The kernel wrapper and the plain version of kernel `name`."""
     from selfcorr_tpu_torch.ops import attention as A
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
     from selfcorr_tpu_torch.ops.rasterizer import reference as R
-    kernel, plain, check = {
-        "raster_fused_fwd": (KR.raster_fused_fwd_cuda,
-                             R.raster_fused_fwd_plain, fwd_compare),
-        "raster_fused_bwd": (KR.raster_fused_bwd_cuda,
-                             R.raster_fused_bwd_plain, bwd_compare),
-        "dino_flash_attn": (A.flash_attention_cuda, A.flash_attention_plain,
-                            lambda ko, po: attn_compare(ko, po, args[2])),
-    }[name]
+    if name == "dino_flash_attn":
+        return A.flash_attention_cuda, A.flash_attention_plain
+    return getattr(KR, f"{name}_cuda"), getattr(R, f"{name}_plain")
+
+
+def hold(name, *args):
+    """Kernel `name` and its plain version on the same inputs: (the
+    kernel's output, its max |kernel - plain| (per plane for a forward),
+    whether it is within the tolerance)."""
+    kernel, plain = routes(name)
+    if name in FWD_KERNELS:
+        check = fwd_compare
+    elif name in BWD_KERNELS:
+        check = bwd_compare
+    else:
+        def check(ko, po):
+            return attn_compare(ko, po, args[2])
     ko, po = kernel(*args), plain(*args)
     torch.cuda.synchronize()
     return (ko, *check(ko, po))
@@ -295,28 +333,62 @@ def time_ms(fn, reps=20, warmup=3):
     return statistics.median(times)
 
 
-def kernel_costs(consts, s, sigma1, sigma2, gamma_d, gamma_t):
-    """Kernel and plain times, and the bound: the larger of the operations
-    these inputs need (pairs of each kind, counted by the plain version,
-    times OPS_PER_PAIR) over the fp32 peak, and the constants read once plus
-    13 planes written once over HBM bandwidth."""
-    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+def raster_args(name, args):
+    """The parts of rasterizer kernel `name`'s arguments: consts, the chunk
+    cull (spans, masks; () in the compact schedule), the planes and
+    cotangents (a backward's; else ()), the image size, the four sigmas /
+    gammas and tex_res."""
+    consts, *rest = args
+    chunks = pg = ()
+    if name.endswith("_chunk"):
+        chunks, rest = tuple(rest[:2]), rest[2:]
+    if name in BWD_KERNELS:
+        pg, rest = tuple(rest[:2]), rest[2:]
+    s, *sg = rest[:5]
+    return consts, chunks, pg, s, tuple(sg), (rest[5] if len(rest) > 5
+                                              else 0)
+
+
+def raster_costs(name, *args):
+    """Kernel and plain times of rasterizer kernel `name` on args (the
+    plain version once, after hold has run it on the same inputs), and the
+    bound of the function, the same for both schedules: the larger of the
+    operations of the (face, pixel) pairs that do work (counted by the
+    compact plain forward's own masks, times OPS_PER_PAIR[_BWD][_TEX]) over
+    the fp32 peak, and the bytes read once and written once (the constants,
+    the chunk cull, 13 output planes for a forward; the constants, the cull,
+    16 planes and the gradient for a backward) over HBM bandwidth."""
     from selfcorr_tpu_torch.ops.rasterizer.reference import \
         raster_fused_fwd_plain
-    args = (consts, s, sigma1, sigma2, gamma_d, gamma_t)
-    ms = time_ms(lambda: KR.raster_fused_fwd_cuda(*args))
-    plain_ms = time_ms(lambda: raster_fused_fwd_plain(*args), reps=5,
-                       warmup=1)
+    kernel, plain = routes(name)
+    consts, chunks, _, s, sg, tex_res = raster_args(name, args)
+    ms = time_ms(lambda: kernel(*args))
+    plain_ms = time_ms(lambda: plain(*args), reps=1, warmup=0)
     pairs = {}
-    raster_fused_fwd_plain(*args, pair_counts=pairs)
-    ops = sum(OPS_PER_PAIR[k] * n for k, n in pairs.items())
+    raster_fused_fwd_plain(consts, s, *sg, tex_res, pair_counts=pairs)
+    bwd = name in BWD_KERNELS
+    per_pair = ((OPS_PER_PAIR_BWD_TEX if tex_res else OPS_PER_PAIR_BWD)
+                if bwd else (OPS_PER_PAIR_TEX if tex_res else OPS_PER_PAIR))
+    ops = sum(n * pairs[k] for k, n in per_pair.items())
     b, f, k = consts.shape
-    nbytes = b * f * k * 4 + 13 * b * s * s * 4
+    nbytes = (b * f * k * 4 * (2 if bwd else 1)
+              + sum(t.numel() * 4 for t in chunks)
+              + (16 if bwd else 13) * b * s * s * 4)
     t_ops = ops / FP32_PEAK * 1e3
     t_bytes = nbytes / HBM_BW * 1e3
     return dict(ms=ms, plain_ms=plain_ms, pairs=pairs, ops=ops, bytes=nbytes,
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def pack(dev, s, fv, st, ht, surf=None):
+    """The sorted, padded constants of a scene for image size s, packed as
+    render_fused packs them, on the card."""
+    from selfcorr_tpu_torch.ops.rasterizer import common as C
+    return C.pack_constants(
+        *(torch.tensor(a, device=dev) for a in (fv, st, ht)),
+        surf_tex=None if surf is None else torch.tensor(surf, device=dev),
+        n_bands=C.bands_for(s))
 
 
 def kernel_phase(rng, dev):
@@ -350,7 +422,7 @@ def kernel_phase(rng, dev):
             if not ok:
                 failures.append(tag)
             if timed:
-                c = kernel_costs(consts, s, *sg)
+                c = raster_costs("raster_fused_fwd", consts, s, *sg)
                 timings[name] = c
                 print(f"[kernel] {tag}: kernel {c['ms']} ms, plain "
                       f"{c['plain_ms']} ms, bound {c['bound_ms']} ms "
@@ -379,30 +451,16 @@ def random_grads(rng, b, s, dev):
                             device=dev) for n in BWD_GRADS}
 
 
-def bwd_costs(consts, planes, grads, s, *sg):
-    """B2 and plain times, and the bound: the larger of the operations of
-    the pairs that do work (counted by the plain forward's own masks, times
-    OPS_PER_PAIR_BWD) over the fp32 peak, and the 16 planes and the
-    constants read once plus the gradient written once over HBM
-    bandwidth."""
-    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
-    from selfcorr_tpu_torch.ops.rasterizer.reference import (
-        raster_fused_bwd_plain, raster_fused_fwd_plain)
-    ms = time_ms(lambda: KR.raster_fused_bwd_cuda(consts, planes, grads, s,
-                                                  *sg))
-    plain_ms = time_ms(lambda: raster_fused_bwd_plain(consts, planes, grads,
-                                                      s, *sg),
-                       reps=3, warmup=1)
-    pairs = {}
-    raster_fused_fwd_plain(consts, s, *sg, pair_counts=pairs)
-    ops = sum(OPS_PER_PAIR_BWD[k] * pairs[k] for k in OPS_PER_PAIR_BWD)
-    b, f, k = consts.shape
-    nbytes = 2 * b * f * k * 4 + 16 * b * s * s * 4
-    t_ops = ops / FP32_PEAK * 1e3
-    t_bytes = nbytes / HBM_BW * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, pairs=pairs, ops=ops, bytes=nbytes,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+def scene_cases(rng):
+    """The scenes (a)-(c) as (name, fv, st, ht, S, timed)."""
+    cases = [("(a) panel laptop B=1 S=320", *laptop_scene(rng, 1), 320, True),
+             ("(b) laptop 8 poses B=8 S=256", *laptop_scene(rng, 8), 256,
+              True),
+             ("(b) ico(3) scattered B=8 S=256", *ico_scene(rng, 8), 256,
+              True)]
+    cases += [(f"(c) {n}", *sc, 64, False)
+              for n, sc in edge_scenes(rng).items()]
+    return cases
 
 
 def b2_phase(rng, dev):
@@ -410,16 +468,9 @@ def b2_phase(rng, dev):
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
     from selfcorr_tpu_torch.ops.rasterizer.reference import \
         raster_fused_fwd_plain
-    cases =[("(a) panel laptop B=1 S=320", *laptop_scene(rng, 1), 320, True),
-             ("(b) laptop 8 poses B=8 S=256", *laptop_scene(rng, 8), 256,
-              True),
-             ("(b) ico(3) scattered B=8 S=256", *ico_scene(rng, 8), 256,
-              True)]
-    cases += [(f"(c) {n}", *sc, 64, False)
-              for n, sc in edge_scenes(rng).items()]
-    sg = (1e-4, 1e-3, 1e-4, 1e-2)
+    sg = SIGMAS
     timings, failures = {}, []
-    for name, fv, st, ht, s, timed in cases:
+    for name, fv, st, ht, s, timed in scene_cases(rng):
         consts = C.pack_constants(*(torch.tensor(a, device=dev)
                                     for a in (fv, st, ht)))
         planes = raster_fused_fwd_plain(consts, s, *sg)
@@ -435,7 +486,8 @@ def b2_phase(rng, dev):
         if not same:
             failures.append(f"{name}: a second launch differs")
         if timed:
-            c = bwd_costs(consts, planes, grads, s, *sg)
+            c = raster_costs("raster_fused_bwd", consts, planes, grads, s,
+                             *sg)
             timings[name] = c
             print(f"[B2] {name}: kernel {c['ms']} ms, plain {c['plain_ms']} "
                   f"ms, bound {c['bound_ms']} ms ({c['bound_by']}; "
@@ -444,6 +496,108 @@ def b2_phase(rng, dev):
     if failures:
         fail("B2: " + "; ".join(failures))
     return timings
+
+
+def chunk_phase(rng, dev):
+    """B1' and B2' against their plain versions at the scenes (a)-(c); B1'
+    against B1 on the same sorted constants (bit-identical or not,
+    recorded); a second B2' launch bit-identical; at the timed scenes the
+    kernel times of both schedules side by side."""
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.ops.rasterizer.api import chunk_info
+    from selfcorr_tpu_torch.ops.rasterizer.reference import \
+        raster_fused_fwd_chunk_plain
+    sg = SIGMAS
+    out, failures = {}, []
+    for name, fv, st, ht, s, timed in scene_cases(rng):
+        consts = pack(dev, s, fv, st, ht)
+        cull = chunk_info(consts, s, *sg[:2])
+        ko, errs, ok = hold("raster_fused_fwd_chunk", consts, *cull, s, *sg)
+        b1 = KR.raster_fused_fwd_cuda(consts, s, *sg)
+        same_b1 = all(torch.equal(ko[n], b1[n]) for n in ko)
+        planes = raster_fused_fwd_chunk_plain(consts, *cull, s, *sg)
+        grads = random_grads(rng, consts.shape[0], s, dev)
+        bargs = (consts, *cull, planes, grads, s, *sg)
+        kg, err, ok_b = hold("raster_fused_bwd_chunk", *bargs)
+        again = torch.equal(kg, KR.raster_fused_bwd_chunk_cuda(*bargs))
+        rec = {"fwd_max_abs_err": errs, "bwd_max_abs_err": err,
+               "b1_bit_identical": same_b1, "bwd_repeat_bit_identical": again,
+               "chunks_visited": int(torch.stack(
+                   [(cull[1] >> i) & 1 for i in range(32)]).sum())}
+        print(f"[B1'/B2'] {name}: F={consts.shape[1]} B1' max|err| "
+              + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
+              + f"; B1' == B1 bit for bit: {same_b1}; B2' max|err| "
+              f"{err:.3g}; B2' repeat bit-identical: {again}; "
+              f"(tile, chunk) pairs visited {rec['chunks_visited']}",
+              flush=True)
+        failures += ([] if ok else [f"{name}: B1' disagrees"]) \
+            + ([] if ok_b else [f"{name}: B2' disagrees"]) \
+            + ([] if again else [f"{name}: a second B2' launch differs"])
+        if timed:
+            rec.update(
+                b1_chunk_ms=time_ms(lambda: KR.raster_fused_fwd_chunk_cuda(
+                    consts, *cull, s, *sg)),
+                b1_ms=time_ms(lambda: KR.raster_fused_fwd_cuda(consts, s,
+                                                               *sg)),
+                b2_chunk_ms=time_ms(lambda: KR.raster_fused_bwd_chunk_cuda(
+                    *bargs)),
+                b2_ms=time_ms(lambda: KR.raster_fused_bwd_cuda(
+                    consts, planes, grads, s, *sg)))
+            print(f"[B1'/B2'] {name}: B1' {rec['b1_chunk_ms']} ms vs B1 "
+                  f"{rec['b1_ms']} ms; B2' {rec['b2_chunk_ms']} ms vs B2 "
+                  f"{rec['b2_ms']} ms", flush=True)
+        out[name] = rec
+    if failures:
+        fail("B1'/B2': " + "; ".join(failures))
+    return out
+
+
+TEX_RES = 6     # the JAX default n_tex_sample: K = 192
+
+
+def texel_phase(rng, dev):
+    """B1, B2, B1', B2' with random surface texels at R = TEX_RES against
+    their plain versions: the laptop prior under 8 poses at S=256 and F=21
+    at S=64; second backward launches bit-identical."""
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.ops.rasterizer.api import chunk_info
+    from selfcorr_tpu_torch.ops.rasterizer.reference import \
+        raster_fused_fwd_plain
+    sg, r = SIGMAS, TEX_RES
+    cases = [("(b) laptop 8 poses B=8 S=256", *laptop_scene(rng, 8), 256),
+             ("(c) F=21 S=64", *random_scene(rng, 1, 21), 64)]
+    out, failures = {}, []
+    for name, fv, st, ht, s in cases:
+        surf = rng.rand(*fv.shape[:2], r * r, 3).astype(np.float32)
+        consts = pack(dev, s, fv, st, ht, surf)
+        cull = chunk_info(consts, s, *sg[:2])
+        planes = raster_fused_fwd_plain(consts, s, *sg, r)
+        grads = random_grads(rng, consts.shape[0], s, dev)
+        rec = {}
+        for kname, args in (
+                ("raster_fused_fwd", (consts, s, *sg, r)),
+                ("raster_fused_fwd_chunk", (consts, *cull, s, *sg, r)),
+                ("raster_fused_bwd", (consts, planes, grads, s, *sg, r)),
+                ("raster_fused_bwd_chunk", (consts, *cull, planes, grads, s,
+                                            *sg, r))):
+            ko, err, ok = hold(kname, *args)
+            rec[kname] = {"max_abs_err": err}
+            if kname in BWD_KERNELS:
+                again = torch.equal(ko, routes(kname)[0](*args))
+                rec[kname]["repeat_bit_identical"] = again
+                failures += [] if again else [f"{name}: {kname} repeat"]
+            else:
+                rec[kname]["out"] = ko
+            failures += [] if ok else [f"{name}: {kname} disagrees"]
+        fwd, fwd_c = (rec[n].pop("out") for n in FWD_KERNELS)
+        rec["b1_chunk_b1_bit_identical"] = all(
+            torch.equal(fwd[n], fwd_c[n]) for n in fwd)
+        print(f"[texels] {name} R={r} K={consts.shape[2]}: " + "; ".join(
+            f"{n} {v}" for n, v in rec.items()), flush=True)
+        out[name] = rec
+    if failures:
+        fail("texels: " + "; ".join(failures))
+    return out
 
 
 def attn_compare(ko, po, v):
@@ -651,10 +805,31 @@ def profile_calls(fn, reps: int, label: str, filename: str):
 # the training slice
 # ---------------------------------------------------------------------------
 
-TRAIN_STEPS = 6
 TRAIN_ARGS = ["--flagfile", "config/wild6d/laptop.txt",
-              "--dataset_name", "synthetic", "--total_iters",
-              str(TRAIN_STEPS), "--batch_log_interval", "1"]
+              "--dataset_name", "synthetic", "--batch_log_interval", "1"]
+ATTN_PER_STEP = 9   # attention blocks of the DINO trunk that a step runs
+# the training paths: steps, extra flags, the rasterizer schedule
+# (api.COMPACT) and the rasterizer kernels that each step launches once
+TRAIN_PATHS = {
+    "train": (6, [], True, ("raster_fused_fwd", "raster_fused_bwd")),
+    "train_chunk": (3, [], False, ("raster_fused_fwd_chunk",
+                                   "raster_fused_bwd_chunk")),
+    "train_surface": (3, ["--surface_texture", "--n_tex_sample",
+                          str(TEX_RES)], True,
+                      ("raster_fused_fwd", "raster_fused_bwd")),
+}
+
+
+@contextlib.contextmanager
+def schedule(compact: bool):
+    """The rasterizer schedule render_fused takes while the block runs."""
+    from selfcorr_tpu_torch.ops.rasterizer import api
+    saved = api.COMPACT
+    api.COMPACT = compact
+    try:
+        yield
+    finally:
+        api.COMPACT = saved
 
 
 def reset_launches():
@@ -670,40 +845,44 @@ def read_launches():
     return {**KR.LAUNCHES, **A.LAUNCHES}
 
 
-def train_phase():
-    """The training path through its entry point, with the launch counts
-    of its run and each kernel's first main-path inputs."""
+def train_phase(path: str):
+    """Training path `path` of TRAIN_PATHS through its entry point, with
+    the launch counts of its run and each of its kernels' first inputs
+    there."""
     from selfcorr_tpu_torch.ops import attention as A
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
     from selfcorr_tpu_torch.train import loop
-    args = TRAIN_ARGS + ["--checkpoint_dir", OUT, "--name", "train"]
-    with Capture(KR, "raster_fused_fwd_cuda") as c1, \
-            Capture(KR, "raster_fused_bwd_cuda") as c2, \
-            Capture(A, "flash_attention_cuda") as c3:
+    steps, extra, compact, raster = TRAIN_PATHS[path]
+    args = TRAIN_ARGS + ["--total_iters", str(steps), *extra,
+                         "--checkpoint_dir", OUT, "--name", path]
+    with schedule(compact), contextlib.ExitStack() as stack:
+        caps = {n: stack.enter_context(Capture(KR, f"{n}_cuda"))
+                for n in raster}
+        caps["dino_flash_attn"] = stack.enter_context(
+            Capture(A, "flash_attention_cuda"))
         reset_launches()
         t0 = time.time()
         trainer = loop.main(["train"] + args)
         torch.cuda.synchronize()
         launches = read_launches()
     wall = time.time() - t0
-    print(f"[train] loop.main {TRAIN_STEPS} steps, wall {wall:.2f} s (cold: "
+    print(f"[{path}] loop.main {steps} steps, wall {wall:.2f} s (cold: "
           f"data, first launches); kernel launches {launches}", flush=True)
-    want = {"raster_fused_fwd": TRAIN_STEPS, "raster_fused_bwd": TRAIN_STEPS,
-            "dino_flash_attn": 9 * TRAIN_STEPS}
+    want = {n: steps if n in raster else 0 for n in launches}
+    want["dino_flash_attn"] = ATTN_PER_STEP * steps
     if launches != want:
-        fail(f"training launches {launches}, expected {want}: one render "
-             f"(B1 forward, B2 backward) and 9 attention blocks per step")
+        fail(f"{path}: launches {launches}, expected {want}: one render "
+             f"({' forward, '.join(raster)} backward) and {ATTN_PER_STEP} "
+             f"attention blocks per step")
     logged = trainer.logged
     bad = [(st, k, v) for st, vals in logged for k, v in vals.items()
            if not math.isfinite(v)]
-    if len(logged) != TRAIN_STEPS or bad:
-        fail(f"training logged {len(logged)} of {TRAIN_STEPS} steps; "
-             f"non-finite metrics: {bad}")
-    print("[train] logged total_loss: "
+    if len(logged) != steps or bad:
+        fail(f"{path}: logged {len(logged)} of {steps} steps; non-finite "
+             f"metrics: {bad}")
+    print(f"[{path}] logged total_loss: "
           + " ".join(f"{v['total_loss']:.8f}" for _, v in logged))
-    return trainer, launches, {"raster_fused_fwd": c1.calls[0],
-                               "raster_fused_bwd": c2.calls[0],
-                               "dino_flash_attn": c3.calls[0]}
+    return trainer, launches, {n: c.calls[0] for n, c in caps.items()}
 
 
 def train_batch(trainer):
@@ -721,9 +900,9 @@ def train_batch(trainer):
     return batch, draws
 
 
-def train_timing(trainer, card: str, reps: int = 5):
+def train_timing(trainer, card: str, path: str, reps: int = 5):
     """Warm train_step time on one device batch (the loop's data loading
-    excluded), and a profile of one step."""
+    excluded), with every loss finite, and a profile of one step."""
     from selfcorr_tpu_torch.train.step import train_step
     cfg = trainer.cfg
     batch, draws = train_batch(trainer)
@@ -736,28 +915,27 @@ def train_timing(trainer, card: str, reps: int = 5):
         m = train_step(trainer.state, batch, draws, cfg)
         torch.cuda.synchronize()
         times.append(time.time() - t0)
-        if not math.isfinite(float(m["total_loss"])):
-            fail("a timed train step gave a non-finite loss")
+        bad = [k for k, v in m.items() if not math.isfinite(float(v))]
+        if bad:
+            fail(f"{path}: a timed train step gave non-finite {bad}")
     step_ms = statistics.median(times) * 1e3
-    print(f"[train] warm train_step at batch {b}: median {step_ms:.2f} ms "
+    print(f"[{path}] warm train_step at batch {b}: median {step_ms:.2f} ms "
           f"over {reps} steps ({', '.join(f'{t * 1e3:.1f}' for t in times)})"
           f" = {b / step_ms * 1e3:.1f} imgs/s on {card}", flush=True)
     prof = profile_calls(lambda: train_step(trainer.state, batch, draws, cfg),
-                         1, "train_step", "train_profile.txt")
+                         1, f"{path} train_step", f"{path}_profile.txt")
     return step_ms, b / step_ms * 1e3, prof
 
 
-def step_kernels_vs_plain(state, batch, draws, cfg):
+def step_kernels_vs_plain(state, batch, draws, cfg, path="train"):
     """One train step with the kernels and one with the plain versions
-    patched in, each from a copy of `state` with its update count set to 0
-    (learning rates 1/25 of the peaks), on one batch and set of draws; the
-    DINO features are computed once and fed to both (dino_pair_match takes
-    argmaxes). Compares the metrics, every parameter's gradient before
-    clipping (taken where train_step hands it to clip_and_guard) and the
-    updated parameters."""
+    patched in (all four rasterizer wrappers), each from a copy of `state`
+    with its update count set to 0 (learning rates 1/25 of the peaks), on
+    one batch and set of draws; the DINO features are computed once and fed
+    to both (dino_pair_match takes argmaxes). Compares the metrics, every
+    parameter's gradient before clipping (taken where train_step hands it to
+    clip_and_guard) and the updated parameters."""
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
-    from selfcorr_tpu_torch.ops.rasterizer.reference import (
-        raster_fused_bwd_plain, raster_fused_fwd_plain)
     from selfcorr_tpu_torch.train import step as ST
     with torch.no_grad():
         feats = state.dino(batch["img"].float() / 255.0)
@@ -779,16 +957,18 @@ def step_kernels_vs_plain(state, batch, draws, cfg):
                           for n, p in model.named_parameters()})
             return guard(model)
 
-        saved = KR.raster_fused_fwd_cuda, KR.raster_fused_bwd_cuda
+        names = [f"{n}_cuda" for n in FWD_KERNELS + BWD_KERNELS]
+        saved = {n: getattr(KR, n) for n in names}
         ST.clip_and_guard = keep_grads
         if route == "plain":
-            KR.raster_fused_fwd_cuda = raster_fused_fwd_plain
-            KR.raster_fused_bwd_cuda = raster_fused_bwd_plain
+            for n in FWD_KERNELS + BWD_KERNELS:
+                setattr(KR, f"{n}_cuda", routes(n)[1])
         try:
             m = ST.train_step(st, batch, draws, cfg)
             torch.cuda.synchronize()
         finally:
-            KR.raster_fused_fwd_cuda, KR.raster_fused_bwd_cuda = saved
+            for n, fn in saved.items():
+                setattr(KR, n, fn)
             ST.clip_and_guard = guard
         runs[route] = ({k: float(v) for k, v in m.items()}, grads,
                        {n: p.detach() for n, p in
@@ -822,11 +1002,11 @@ def step_kernels_vs_plain(state, batch, draws, cfg):
     for n in pp:
         if n not in lr_of and not torch.equal(pp[n], before[n]):
             fail(f"the frozen parameter {n} moved")
-    print(f"[train] gradients that are rounding noise (< 1e-4 of their "
+    print(f"[{path}] gradients that are rounding noise (< 1e-4 of their "
           f"layer's largest), updates not compared: {noise}", flush=True)
     worst = {"aux": max(aux, key=aux.get), "norms": max(norms, key=norms.get),
              "grad": max(grad, key=grad.get), "upd": max(upd, key=upd.get)}
-    print(f"[train] one step at count 0, kernels vs plain: aux losses max "
+    print(f"[{path}] one step at count 0, kernels vs plain: aux losses max "
           f"rel err {aux[worst['aux']]:.3g} ({worst['aux']}); group norms "
           f"max rel err {norms[worst['norms']]:.3g} ({worst['norms']}); "
           f"gradients max err {grad[worst['grad']]:.3g} of the layer's "
@@ -835,55 +1015,61 @@ def step_kernels_vs_plain(state, batch, draws, cfg):
           flush=True)
     for name, d in (("gradient", grad), ("update", upd)):
         top = sorted(d, key=d.get, reverse=True)[:5]
-        print(f"[train]   largest {name} errors: "
+        print(f"[{path}]   largest {name} errors: "
               + ", ".join(f"{n} {d[n]:.3g}" for n in top), flush=True)
     bad = ([k for k, e in aux.items() if not e <= 1e-3]
            + [k for k, e in norms.items() if not e <= 1e-3]
            + [f"grad {n}" for n, e in grad.items() if not e <= 1e-3]
            + [f"update {n}" for n, e in upd.items() if not e <= 1e-1])
     if bad or mk["bad_grad"] or mp["bad_grad"]:
-        fail(f"train step with kernels disagrees with the plain versions "
-             f"in {len(bad)} places: {bad[:10]}")
+        fail(f"{path}: train step with kernels disagrees with the plain "
+             f"versions in {len(bad)} places: {bad[:10]}")
     return {"aux_max_rel": aux[worst["aux"]],
             "norms_max_rel": norms[worst["norms"]],
             "grads_max_rel": grad[worst["grad"]],
             "updates_max_of_lr": upd[worst["upd"]], "noise_leaves": noise}
 
 
-def report_main_path(captured):
-    """Each kernel against its plain version at the training path's first
-    inputs; times and bounds there."""
-    costs = {"raster_fused_fwd": kernel_costs, "raster_fused_bwd": bwd_costs,
-             "dino_flash_attn": attn_costs}
+def report_main_path(path, captured):
+    """Each kernel against its plain version at training path `path`'s
+    first inputs; times and bounds there."""
     out = {}
     for name, args in captured.items():
         _, err, ok = hold(name, *args)
         if not ok:
-            fail(f"{name} disagrees at the training path's inputs")
+            fail(f"{name} disagrees at the {path} path's inputs")
         if isinstance(err, dict):
             err = max(err.values())
-        out[name] = dict(costs[name](*args), max_abs_err=err)
-        c = out[name]
-        print(f"[report] {name} at the training path's inputs: kernel "
+        cost = (attn_costs(*args) if name == "dino_flash_attn"
+                else raster_costs(name, *args))
+        out[name] = c = dict(cost, max_abs_err=err)
+        print(f"[report] {name} at the {path} path's inputs: kernel "
               f"{c['ms']} ms, plain {c['plain_ms']} ms, bound {c['bound_ms']}"
               f" ms ({c['bound_by']}), library {c.get('library_ms')} ms, "
               f"max|err| {c['max_abs_err']:.3g}", flush=True)
     return out
 
 
+_CSRC = "selfcorr_tpu_torch/ops/rasterizer/csrc/"
+_PALLAS = "selfcorr_tpu/ops/rasterizer/pallas_raster.py"
+# kernel: (source, the TPU kernel it replaces, the training path whose run
+# its row reports)
 KERNELS = {
-    "raster_fused_fwd": ("selfcorr_tpu_torch/ops/rasterizer/csrc/"
-                         "raster_fwd.cu",
-                         "selfcorr_tpu/ops/rasterizer/pallas_raster.py:806"),
-    "raster_fused_bwd": ("selfcorr_tpu_torch/ops/rasterizer/csrc/"
-                         "raster_bwd.cu",
-                         "selfcorr_tpu/ops/rasterizer/pallas_raster.py:1177"),
+    "raster_fused_fwd": (_CSRC + "raster_fwd.cu", f"{_PALLAS}:806",
+                         "train"),
+    "raster_fused_bwd": (_CSRC + "raster_bwd.cu", f"{_PALLAS}:1177",
+                         "train"),
+    "raster_fused_fwd_chunk": (_CSRC + "raster_fwd_chunk.cu",
+                               f"{_PALLAS}:730", "train_chunk"),
+    "raster_fused_bwd_chunk": (_CSRC + "raster_bwd_chunk.cu",
+                               f"{_PALLAS}:1117", "train_chunk"),
     "dino_flash_attn": ("selfcorr_tpu_torch/ops/csrc/flash_attn.cu",
-                        "selfcorr_tpu/models/vit.py:72"),
+                        "selfcorr_tpu/models/vit.py:72", "train"),
 }
 
 
 def main() -> int:
+    t_start = time.time()
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a "
@@ -912,15 +1098,19 @@ def main() -> int:
     KR.build()
     A.build()
     build_s = time.time() - t0
-    print(f"[build] raster_fwd.cu, raster_bwd.cu, flash_attn.cu built (one "
-          f"nvcc each, in parallel) and bound in {build_s:.2f} s",
-          flush=True)
+    built = [os.path.basename(p) for p in KR.SOURCES.values()]
+    print(f"[build] {', '.join(built + ['flash_attn.cu'])} built (one nvcc "
+          f"each, in parallel) and bound in {build_s:.2f} s", flush=True)
 
     phase("B1 vs plain version")
     rng = np.random.RandomState(0)
     timings = kernel_phase(rng, dev)
     phase("B2 vs plain version")
     b2_timings = b2_phase(rng, dev)
+    phase("B1', B2' vs plain versions, B1' vs B1")
+    chunk_scenes = chunk_phase(rng, dev)
+    phase(f"surface texels R={TEX_RES}: B1, B2, B1', B2' vs plain versions")
+    texel_scenes = texel_phase(rng, dev)
     phase("B3 vs plain version")
     b3_cost = b3_phase(dev)
 
@@ -938,48 +1128,65 @@ def main() -> int:
           + " ".join(f"{n}={e:.3g}" for n, e in errs.items()), flush=True)
     if bad:
         fail(f"kernel disagrees at the predict path's inputs: {bad}")
-    consts, *a = captured[0]
-    predict_cost = kernel_costs(consts, *a)
+    consts = captured[0][0]
+    predict_cost = raster_costs("raster_fused_fwd", *captured[0])
     print(f"[predict] B1 at the predict path's inputs: B={consts.shape[0]} "
-          f"F={consts.shape[1]} S={a[0]}; kernel {predict_cost['ms']} ms, "
-          f"plain {predict_cost['plain_ms']} ms, bound "
-          f"{predict_cost['bound_ms']} ms ({predict_cost['bound_by']}; "
+          f"F={consts.shape[1]} S={captured[0][1]}; kernel "
+          f"{predict_cost['ms']} ms, plain {predict_cost['plain_ms']} ms, "
+          f"bound {predict_cost['bound_ms']} ms ({predict_cost['bound_by']}; "
           f"{predict_cost['ops']} operations over pairs "
           f"{predict_cost['pairs']})", flush=True)
 
-    phase("training slice")
-    trainer, train_launches, train_captured = train_phase()
-    # the trained state before the timed steps advance it further
-    state = copy.deepcopy(trainer.state)
-    step_ms, ips, train_prof = train_timing(trainer, smi)
-    parity = step_kernels_vs_plain(state, *train_batch(trainer), trainer.cfg)
+    launches, captured, steps, parity = {"predict": predict_launches}, {}, \
+        {}, {}
+    for path, (_, _, compact, _) in TRAIN_PATHS.items():
+        phase(f"training slice: {path}")
+        trainer, launches[path], captured[path] = train_phase(path)
+        # the trained state before the timed steps advance it further
+        state = copy.deepcopy(trainer.state)
+        with schedule(compact):
+            steps[path] = train_timing(trainer, smi, path)
+            parity[path] = step_kernels_vs_plain(
+                state, *train_batch(trainer), trainer.cfg, path)
+        del trainer, state
+    print("[train] warm step at batch 32: " + "; ".join(
+        f"{p} {ms:.2f} ms = {ips:.1f} imgs/s" for p, (ms, ips, _)
+        in steps.items()) + f" on {smi}", flush=True)
 
     phase("report")
-    main_costs = report_main_path(train_captured)
+    main_costs = {p: report_main_path(p, c) for p, c in captured.items()}
     summary = {"card": smi, "build_s": build_s,
                "predict_ms_per_batch": per_batch * 1e3,
                "predict_fps_batch16": fps, "predict_profile": breakdown,
-               "launches": {"predict": predict_launches,
-                            "train": train_launches},
+               "launches": launches,
                "b1_at_scenes": timings, "b1_predict_path": predict_cost,
                "b1_predict_path_max_abs_err": errs,
-               "b2_at_scenes": b2_timings, "b3_trunk_shape": b3_cost,
-               "train_step_ms": step_ms, "train_imgs_per_s": ips,
-               "train_profile": train_prof, "train_step_parity": parity,
-               "train_path": main_costs}
+               "b2_at_scenes": b2_timings, "chunk_at_scenes": chunk_scenes,
+               "texels_at_scenes": texel_scenes, "b3_trunk_shape": b3_cost,
+               "train_step_ms": {p: s[0] for p, s in steps.items()},
+               "train_imgs_per_s": {p: s[1] for p, s in steps.items()},
+               "train_profile": {p: s[2] for p, s in steps.items()},
+               "train_step_parity": parity, "train_paths": main_costs}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     rows = []
-    for name, (src, replaces) in KERNELS.items():
-        c = main_costs[name]
-        rows.append({
+    for name, (src, replaces, path) in KERNELS.items():
+        c = main_costs[path][name]
+        row = {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": train_launches[name],
-            "launches_by_path": {"predict": predict_launches.get(name, 0),
-                                 "train": train_launches[name]},
+            "replaces": replaces, "launches": launches[path][name],
+            "launches_by_path": {p: n.get(name, 0)
+                                 for p, n in launches.items()},
             "max_abs_err": c["max_abs_err"], "ms": c["ms"],
             "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-            "bound_by": c["bound_by"], "library_ms": c.get("library_ms")})
+            "bound_by": c["bound_by"], "library_ms": c.get("library_ms")}
+        if name in main_costs["train_surface"] and name != "dino_flash_attn":
+            t = main_costs["train_surface"][name]
+            row[f"tex_res_{TEX_RES}"] = {k: t[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        rows.append(row)
+    print(f"[done] every phase passed in {time.time() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

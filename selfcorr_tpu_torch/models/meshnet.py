@@ -28,6 +28,7 @@ from selfcorr_tpu_torch.models import correspondence as corr
 from selfcorr_tpu_torch.models.heads import PosePredictor, ShapeDeformer
 from selfcorr_tpu_torch.models.pointnet import MeshEncoder
 from selfcorr_tpu_torch.models.resnet import Backbone, FPNDecoder, frozen_stats
+from selfcorr_tpu_torch.models.surface_texture import surface_texture
 from selfcorr_tpu_torch.ops import geometry as G
 from selfcorr_tpu_torch.ops import mesh_ops as M
 from selfcorr_tpu_torch.ops.image_ops import (color_jitter, grid_sample,
@@ -198,15 +199,18 @@ def weights_schedule(step: int, cfg: Config) -> dict:
 
 
 def render_products(pred_v, faces, tex, foc_crop, pp_crop, rotation,
-                    translation, cfg: Config) -> dict:
-    """Camera transform, one fused render (kernels B1 forward and B2
-    backward on the card) and the analytic per-vertex image matches and
-    visibility weights."""
+                    translation, cfg: Config, surf_tex=None) -> dict:
+    """Camera transform, one fused render (on the card kernels B1 forward
+    and B2 backward, or B1' and B2' in the dense-chunk schedule) and the
+    analytic per-vertex image matches and visibility weights. surf_tex
+    (B, F, R^2, 3) switches the texture pass to per-face texel grids
+    ('surface' mode)."""
     verts_cam = G.rigid_transform(pred_v, rotation, translation)
     proj = G.project_ndc(verts_cam, pp_crop, foc_crop, flip_y=True)
     rast = torch.cat([proj[..., :2], proj[..., 2:] + EYE_OFFSET], -1)
     out = render_fused(rast[:, faces], tex[:, faces],
-                       pred_v.detach()[:, faces], cfg.img_size)
+                       pred_v.detach()[:, faces], cfg.img_size,
+                       surf_tex=surf_tex)
     depth = out["depth"] if cfg.use_depth else out["depth"].detach()
 
     # analytic projected vertices (no y flip: image convention)
@@ -245,9 +249,15 @@ def forward_train(model: MeshNet, dino, batch: dict, dc: DeviceConstants,
     _, match_map, imatch, _ = corr.dual_softmax_match(
         img_feat, mesh_feat, mask, pred_v, meshgrid, cfg.tau_img,
         cfg.tau_mesh, cfg.corr_h, cfg.corr_w)
+    # vertex colours sampled at the matched pixels; with surface_texture
+    # the render's texture pass takes per-face texel grids sampled at
+    # imatch-interpolated points instead
     tex = grid_sample(img, imatch)
+    surf = (surface_texture(img, imatch, faces, cfg.n_tex_sample)
+            if cfg.surface_texture else None)
     r = render_products(pred_v, faces, tex, batch["foc_crop"],
-                        batch["pp_crop"], rotation, translation, cfg)
+                        batch["pp_crop"], rotation, translation, cfg,
+                        surf_tex=surf)
 
     occ = batch.get("occ") if cfg.use_occ else None
     mask_l = w["mask"] * mask_pyramid_loss(mask, r["mask_render"], occ).mean()

@@ -1,16 +1,20 @@
 """Build, bind and launch the fused-rasterizer CUDA kernels:
 
-  csrc/raster_fwd.cu  replaces the TPU kernel `_fwd_kernel_compact`
-                      (selfcorr_tpu/ops/rasterizer/pallas_raster.py:806)
-  csrc/raster_bwd.cu  replaces the TPU kernel `_bwd_kernel_compact`
-                      (pallas_raster.py:1177, per-group math
-                      `_bwd_chunk_grads` :877)
+  csrc/raster_fwd.cu        B1, replaces the TPU kernel `_fwd_kernel_compact`
+                            (selfcorr_tpu/ops/rasterizer/pallas_raster.py:806)
+  csrc/raster_bwd.cu        B2, replaces `_bwd_kernel_compact` (:1177,
+                            per-group math `_bwd_chunk_grads` :877)
+  csrc/raster_fwd_chunk.cu  B1', replaces `_fwd_kernel` (:730), the
+                            dense-chunk schedule
+  csrc/raster_bwd_chunk.cu  B2', replaces `_bwd_kernel` (:1117)
 
+The four share their per-pair device code through csrc/raster_common.cuh.
 The sources have a plain C interface and include no PyTorch header;
 utils/cuda_build.py compiles them with nvcc for sm_90a into
-selfcorr_tpu_torch/_build/ at first use, and ctypes binds the C functions. A
-failed build raises. Nothing here runs at import time, so the CPU tests can
-import the module on machines with no CUDA toolkit.
+selfcorr_tpu_torch/_build/ at first use, one nvcc per source, all at once,
+and ctypes binds the C functions. A failed build raises, and so does a
+launch the card refuses. Nothing here runs at import time, so the CPU tests
+can import the module on machines with no CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -21,36 +25,47 @@ import os
 import torch
 
 from selfcorr_tpu_torch.ops.rasterizer import common as C
+from selfcorr_tpu_torch.ops.rasterizer.chunks import n_words, tiles_for
 from selfcorr_tpu_torch.ops.rasterizer.reference import (BWD_GRADS,
                                                          BWD_PLANES, PLANES)
 from selfcorr_tpu_torch.utils import cuda_build
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = {"raster_fused_fwd": os.path.join(_HERE, "csrc", "raster_fwd.cu"),
-           "raster_fused_bwd": os.path.join(_HERE, "csrc", "raster_bwd.cu")}
+SOURCES = {name: os.path.join(_HERE, "csrc", f"{src}.cu") for name, src in (
+    ("raster_fused_fwd", "raster_fwd"), ("raster_fused_bwd", "raster_bwd"),
+    ("raster_fused_fwd_chunk", "raster_fwd_chunk"),
+    ("raster_fused_bwd_chunk", "raster_bwd_chunk"))}
 CUDA_FLAGS = cuda_build.CUDA_FLAGS
 
 # launches of each kernel, counted by its wrapper where it launches
-LAUNCHES = {"raster_fused_fwd": 0, "raster_fused_bwd": 0}
+LAUNCHES = dict.fromkeys(SOURCES, 0)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# C signatures: the inputs, the ints, then the 13 floats of Params
+# (raster_common.cuh), then the output and the stream
+_ARGTYPES = {
+    "raster_fused_fwd": [_P] + [_I] * 5,
+    "raster_fused_bwd": [_P, _P] + [_I] * 5,
+    "raster_fused_fwd_chunk": [_P] * 3 + [_I] * 10,
+    "raster_fused_bwd_chunk": [_P] * 4 + [_I] * 10,
+}
 
 _lib = None  # {kernel name: bound C function}, after build()
 
 
 def build() -> dict:
-    """Compile (once per process, both sources at once) and bind the
+    """Compile (once per process, all sources at once) and bind the
     kernels."""
     global _lib
     if _lib is None:
         cuda_build.build_all(list(SOURCES.values()))
-        fwd = cuda_build.load(SOURCES["raster_fused_fwd"]).raster_fused_fwd
-        fwd.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
-                        + [ctypes.c_float] * 13 + [ctypes.c_void_p] * 2)
-        fwd.restype = ctypes.c_int
-        bwd = cuda_build.load(SOURCES["raster_fused_bwd"]).raster_fused_bwd
-        bwd.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
-                        + [ctypes.c_float] * 12 + [ctypes.c_void_p] * 2)
-        bwd.restype = ctypes.c_int
-        _lib = {"raster_fused_fwd": fwd, "raster_fused_bwd": bwd}
+        lib = {}
+        for name, src in SOURCES.items():
+            fn = getattr(cuda_build.load(src), name)
+            fn.argtypes = _ARGTYPES[name] + [_F] * 13 + [_P, _P]
+            fn.restype = ctypes.c_int
+            lib[name] = fn
+        _lib = lib
     return _lib
 
 
@@ -66,69 +81,155 @@ def cull_pad(sigma1: float, sigma2: float) -> float:
     return math.sqrt(max(sigma1, sigma2) * C.DIST_CUT) * 1.001 + 1e-6
 
 
-def _check_consts(consts: torch.Tensor, name: str):
+def _params(image_size, sigma1, sigma2, gamma_d, gamma_t):
+    """The 13 floats of Params (csrc/raster_common.cuh): every division by
+    a constant is a multiplication by its float32 reciprocal."""
+    return (1.0 / sigma1, 1.0 / sigma2, 1.0 / gamma_d, 1.0 / gamma_t,
+            C.NEAR, C.FAR, 1.0 / (C.FAR - C.NEAR), C.BG_EPS, C.EYE_OFFSET,
+            sigma1 * C.DIST_CUT, sigma2 * C.DIST_CUT,
+            cull_pad(sigma1, sigma2), 1.0 / image_size)
+
+
+def _check_consts(consts: torch.Tensor, name: str, tex_res: int):
     if not consts.is_cuda:
         raise ValueError(f"{name} needs a CUDA tensor")
-    if consts.dtype != torch.float32 or consts.dim() != 3 \
-            or consts.shape[-1] != C.K:
-        raise ValueError(f"consts must be (B, F, {C.K}) float32, got "
+    k = consts.shape[-1] if consts.dim() == 3 else -1
+    if consts.dtype != torch.float32 or k < C.K or k % 64:
+        raise ValueError(f"consts must be (B, F, 64 n) float32, got "
                          f"{tuple(consts.shape)} {consts.dtype}")
+    if k != C.k_for(tex_res):
+        raise ValueError(f"tex_res={tex_res} needs {C.k_for(tex_res)} "
+                         f"packed slots per face, got {k}")
+
+
+def _check_chunks(consts, spans, masks, s):
+    b, f, _ = consts.shape
+    if f % C.FF:
+        raise ValueError(f"the dense-chunk kernels need F a multiple of "
+                         f"{C.FF} (common.pack_constants pads it), got {f}")
+    n_t = tiles_for(s).count
+    want = ((b, n_t * 2), (b, n_t * n_words(f // C.FF)))
+    for t, shape, what in ((spans, want[0], "spans"),
+                           (masks, want[1], "masks")):
+        if t.device != consts.device or t.dtype != torch.int32 \
+                or tuple(t.shape) != shape:
+            raise ValueError(f"{what} must be int32 {shape} on "
+                             f"{consts.device} (chunks.compute_chunk_info), "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _pix(consts, planes, grads, s):
+    """The 16 (B, S, S) planes of the backward, stacked: BWD_PLANES, then
+    the cotangents of BWD_GRADS."""
+    b = consts.shape[0]
+    pix = torch.stack([planes[n] for n in BWD_PLANES]
+                      + [grads[n] for n in BWD_GRADS]).float().contiguous()
+    if pix.device != consts.device or pix.shape != (16, b, s, s):
+        raise ValueError(f"planes and cotangents must be ({b}, {s}, {s}) "
+                         f"on {consts.device}, got {tuple(pix.shape[1:])} "
+                         f"on {pix.device}")
+    return pix
+
+
+def _launch(name, consts, *args):
+    """Launch `name` on the current stream of consts' device; raise on the
+    launch's CUDA error; count it."""
+    fn = build()[name]
+    with torch.cuda.device(consts.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+    LAUNCHES[name] += 1
 
 
 def raster_fused_fwd_cuda(consts: torch.Tensor, image_size: int,
                           sigma1: float, sigma2: float, gamma_d: float,
-                          gamma_t: float) -> dict:
-    """consts (B, F, 64) float32 on a CUDA device -> the 13 (B, S, S)
-    planes of reference.PLANES, computed by the CUDA kernel."""
-    _check_consts(consts, "raster_fused_fwd_cuda")
-    b, f, _ = consts.shape
+                          gamma_t: float, tex_res: int = 0) -> dict:
+    """consts (B, F, K) float32 on a CUDA device -> the 13 (B, S, S)
+    planes of reference.PLANES, computed by B1."""
+    _check_consts(consts, "raster_fused_fwd_cuda", tex_res)
+    b, f, k = consts.shape
     s = int(image_size)
     if b < 1 or s < 1:
         raise ValueError(f"empty render: B={b}, S={s}")
-    fn = build()["raster_fused_fwd"]
     consts = consts.contiguous()
     out = torch.empty((len(PLANES), b, s, s), dtype=torch.float32,
                       device=consts.device)
-    with torch.cuda.device(consts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(consts.data_ptr(), b, f, s, 1.0 / sigma1, 1.0 / sigma2,
-                1.0 / gamma_d, 1.0 / gamma_t, C.NEAR, C.FAR,
-                1.0 / (C.FAR - C.NEAR), C.BG_EPS, C.EYE_OFFSET,
-                sigma1 * C.DIST_CUT, sigma2 * C.DIST_CUT,
-                cull_pad(sigma1, sigma2), 1.0 / s, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"raster_fused_fwd launch failed: CUDA error {rc}")
-    LAUNCHES["raster_fused_fwd"] += 1
+    _launch("raster_fused_fwd", consts, consts.data_ptr(), b, f, s, k,
+            tex_res, *_params(s, sigma1, sigma2, gamma_d, gamma_t),
+            out.data_ptr())
     return dict(zip(PLANES, out.unbind(0)))
 
 
 def raster_fused_bwd_cuda(consts: torch.Tensor, planes: dict, grads: dict,
                           image_size: int, sigma1: float, sigma2: float,
-                          gamma_d: float, gamma_t: float) -> torch.Tensor:
-    """d/d(consts) (B, F, 64) from the forward's planes (reference.
+                          gamma_d: float, gamma_t: float,
+                          tex_res: int = 0) -> torch.Tensor:
+    """d/d(consts) (B, F, K) from the forward's planes (reference.
     BWD_PLANES) and the cotangents (reference.BWD_GRADS), each (B, S, S),
-    computed by the CUDA kernel. Deterministic: one fixed-order reduction
-    per face, no atomics."""
-    _check_consts(consts, "raster_fused_bwd_cuda")
-    b, f, _ = consts.shape
+    computed by B2. Deterministic: one fixed-order reduction per face, no
+    atomics."""
+    _check_consts(consts, "raster_fused_bwd_cuda", tex_res)
+    b, f, k = consts.shape
     s = int(image_size)
-    pix = torch.stack([planes[n] for n in BWD_PLANES]
-                      + [grads[n] for n in BWD_GRADS]).float()
-    if pix.device != consts.device or pix.shape != (16, b, s, s):
-        raise ValueError(f"planes and cotangents must be ({b}, {s}, {s}) "
-                         f"on {consts.device}, got {tuple(pix.shape[1:])} "
-                         f"on {pix.device}")
-    fn = build()["raster_fused_bwd"]
+    pix = _pix(consts, planes, grads, s)
     consts = consts.contiguous()
     grad = torch.empty_like(consts)
-    with torch.cuda.device(consts.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(consts.data_ptr(), pix.data_ptr(), b, f, s, 1.0 / sigma1,
-                1.0 / sigma2, 1.0 / gamma_d, 1.0 / gamma_t, C.NEAR, C.FAR,
-                1.0 / (C.FAR - C.NEAR), C.EYE_OFFSET, sigma1 * C.DIST_CUT,
-                sigma2 * C.DIST_CUT, cull_pad(sigma1, sigma2), 1.0 / s,
-                grad.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"raster_fused_bwd launch failed: CUDA error {rc}")
-    LAUNCHES["raster_fused_bwd"] += 1
+    _launch("raster_fused_bwd", consts, consts.data_ptr(), pix.data_ptr(),
+            b, f, s, k, tex_res,
+            *_params(s, sigma1, sigma2, gamma_d, gamma_t), grad.data_ptr())
+    return grad
+
+
+def _tile_args(consts, s):
+    b, f, _ = consts.shape
+    tl = tiles_for(s)
+    return (tl.rows, tl.cols, tl.n_rows, tl.n_cols, n_words(f // C.FF))
+
+
+def raster_fused_fwd_chunk_cuda(consts: torch.Tensor, spans: torch.Tensor,
+                                masks: torch.Tensor, image_size: int,
+                                sigma1: float, sigma2: float,
+                                gamma_d: float, gamma_t: float,
+                                tex_res: int = 0) -> dict:
+    """The 13 planes of the dense-chunk schedule, computed by B1': consts
+    (B, F, K) with F a multiple of 16, and spans, masks from
+    chunks.compute_chunk_info, all on one CUDA device."""
+    _check_consts(consts, "raster_fused_fwd_chunk_cuda", tex_res)
+    b, f, k = consts.shape
+    s = int(image_size)
+    if b < 1 or s < 1:
+        raise ValueError(f"empty render: B={b}, S={s}")
+    _check_chunks(consts, spans, masks, s)
+    consts, spans, masks = (t.contiguous() for t in (consts, spans, masks))
+    out = torch.empty((len(PLANES), b, s, s), dtype=torch.float32,
+                      device=consts.device)
+    _launch("raster_fused_fwd_chunk", consts, consts.data_ptr(),
+            spans.data_ptr(), masks.data_ptr(), b, f, s, k, tex_res,
+            *_tile_args(consts, s),
+            *_params(s, sigma1, sigma2, gamma_d, gamma_t), out.data_ptr())
+    return dict(zip(PLANES, out.unbind(0)))
+
+
+def raster_fused_bwd_chunk_cuda(consts: torch.Tensor, spans: torch.Tensor,
+                                masks: torch.Tensor, planes: dict,
+                                grads: dict, image_size: int, sigma1: float,
+                                sigma2: float, gamma_d: float,
+                                gamma_t: float,
+                                tex_res: int = 0) -> torch.Tensor:
+    """d/d(consts) of the dense-chunk schedule, computed by B2'.
+    Deterministic: one warp per face, a fixed-order reduction, no
+    atomics."""
+    _check_consts(consts, "raster_fused_bwd_chunk_cuda", tex_res)
+    b, f, k = consts.shape
+    s = int(image_size)
+    _check_chunks(consts, spans, masks, s)
+    pix = _pix(consts, planes, grads, s)
+    consts, spans, masks = (t.contiguous() for t in (consts, spans, masks))
+    grad = torch.empty_like(consts)
+    _launch("raster_fused_bwd_chunk", consts, consts.data_ptr(),
+            spans.data_ptr(), masks.data_ptr(), pix.data_ptr(), b, f, s, k,
+            tex_res, *_tile_args(consts, s),
+            *_params(s, sigma1, sigma2, gamma_d, gamma_t), grad.data_ptr())
     return grad

@@ -1,30 +1,50 @@
-"""Plain PyTorch version of the fused soft-rasterizer forward.
+"""Plain PyTorch versions of the fused soft-rasterizer forward and backward,
+in both schedules of the JAX package.
 
-Computes what the TPU kernel `_fwd_kernel_compact`
-(selfcorr_tpu/ops/rasterizer/pallas_raster.py:806) computes, from the same
-packed per-face constants (common.pack_constants): in one pass over the
-faces, chunked so memory stays bounded at B*S^2*F scale, it carries
+  raster_fused_fwd_plain        the TPU kernel `_fwd_kernel_compact`
+                                (selfcorr_tpu/ops/rasterizer/
+                                pallas_raster.py:806): every face at every
+                                pixel
+  raster_fused_fwd_chunk_plain  `_fwd_kernel` (:730), the dense-chunk
+                                schedule: at each pixel only the 16-face
+                                chunks that chunks.compute_chunk_info marks
+                                for its tile
+  raster_fused_bwd_plain        `_bwd_kernel_compact` (:1177, per-pair math
+                                `_bwd_chunk_grads` :877)
+  raster_fused_bwd_chunk_plain  `_bwd_kernel` (:1117)
+
+All read the packed per-face constants (common.pack_constants). In one pass
+over the faces, chunked so memory stays bounded at B*S^2*F scale, the
+forward carries
 
   alpha1 / alpha2  'prod' coverage at sigma1 / sigma2:  1 - prod(1 - D)
   depth            softmax over normalized inverse depth (gamma_d) of the
                    interpolated camera z, white (1.0) background
-  tex rgb          softmax (gamma_t) of the soft texture, white background
+  tex rgb          softmax (gamma_t) of the soft texture, or with tex_res = R
+                   of the surface texel the pixel falls in, white background
   match rgb        hard texture of the nearest containing face; the earliest
                    face wins exact z-ties
   m_d, s_d, m_t, s_t  the running softmax max / sum (backward residuals)
 
-Semantics shared with the kernel (csrc/raster_fwd.cu) and the JAX kernel:
+Semantics shared with the CUDA kernels (csrc/) and the JAX kernels:
   * the squared distance is the segment distance min_e d_seg^2 for every
     pixel (it equals the line distance inside the triangle);
   * D = sigmoid(sign * d^2 / sigma) = 1 / (1 + exp(-sign d^2 / sigma)),
     zero for outside faces at d^2 >= sigma * DIST_CUT;
   * a division by a constant (sigma, gamma, far - near) is a multiplication
-    by its float32 reciprocal, as in the kernel, so both round alike;
-  * interpolation weights are the clipped, renormalized barycentrics;
+    by its float32 reciprocal, as in the kernels, so both round alike;
+  * interpolation weights are the clipped, renormalized barycentrics; the
+    surface texel is cell (floor(c0 R), floor(c1 R)), folded across the
+    diagonal (`_surface_texel_sel` :519);
   * faces outside [near, far] keep their coverage but drop out of both
     softmaxes and of the hard pass;
   * excluded faces have their softmax exponent masked to -inf BEFORE the
     exponential, so exp cannot overflow into inf * 0 = nan.
+
+The dense-chunk versions gate each (pixel, face) pair by whether the
+schedule visits the face's chunk at the pixel's tile; an unvisited pair
+takes part in nothing, so a wrong cull shows up as a difference from the
+JAX kernel and from the compact versions.
 
 The running softmax carries start at the background fragment (max bg_eps,
 sum 1, accumulator 1 = white), as pallas_raster.py:847-850 does.
@@ -34,6 +54,7 @@ from __future__ import annotations
 import torch
 
 from selfcorr_tpu_torch.ops.rasterizer import common as C
+from selfcorr_tpu_torch.ops.rasterizer.chunks import visited_chunks
 
 PLANES = ("alpha1", "alpha2", "depth", "texr", "texg", "texb",
           "matr", "matg", "matb", "m_d", "s_d", "m_t", "s_t")
@@ -58,10 +79,12 @@ def _softmax_update(m, s, accs, zn_masked, d_cov, values, gamma):
     return m_new, s_new, accs_new
 
 
-def _pair_geometry(cv, px, py, p2, sigma1, sigma2) -> dict:
+def _pair_geometry(cv, px, py, p2, sigma1, sigma2, gate=None) -> dict:
     """Per-(pixel, face) geometry of one face chunk cv (B, Fc, K) at pixels
     px, py (1, P, 1): barycentrics, segment distances, coverage and
-    interpolated depth, in the CUDA kernels' operation order."""
+    interpolated depth, in the CUDA kernels' operation order. gate (B, P,
+    Fc) bool, when given, drops the pairs it is False at from both
+    coverages (and so from everything)."""
     def col(j):
         return cv[:, None, :, j]                          # (B, 1, Fc)
 
@@ -87,6 +110,9 @@ def _pair_geometry(cv, px, py, p2, sigma1, sigma2) -> dict:
     sign = torch.where(inside, 1.0, -1.0)
     contrib1 = inside | (dis2 < sigma1 * C.DIST_CUT)
     contrib2 = inside | (dis2 < sigma2 * C.DIST_CUT)
+    if gate is not None:
+        contrib1 = contrib1 & gate
+        contrib2 = contrib2 & gate
     d1 = 1.0 / (1.0 + torch.exp(-sign * dis2 * (1.0 / sigma1))) * contrib1
     d2 = 1.0 / (1.0 + torch.exp(-sign * dis2 * (1.0 / sigma2))) * contrib2
 
@@ -104,31 +130,68 @@ def _pair_geometry(cv, px, py, p2, sigma1, sigma2) -> dict:
                 d2=d2, c=(c0, c1, c2), zp=zp, z_ok=z_ok, zn=zn)
 
 
+def texel_index(c0: torch.Tensor, c1: torch.Tensor, res: int
+                ) -> torch.Tensor:
+    """The surface texel (0 .. R^2 - 1, long) at clipped barycentrics c0,
+    c1: cell (floor(c0 R), floor(c1 R)), folded when the cell crosses the
+    diagonal (pallas_raster.py:519-531, in its operation order)."""
+    wx = torch.clamp(torch.floor(c0 * res), 0.0, res - 1.0)
+    wy = torch.clamp(torch.floor(c1 * res), 0.0, res - 1.0)
+    upper = ((c0 + c1) * res - wx - wy) <= 1.0
+    idx = torch.where(upper, wy * res + wx,
+                      (res - 1.0 - wy) * res + (res - 1.0 - wx))
+    return idx.long().clamp(0, res * res - 1)   # NaN weights stay in range
+
+
+def _texel_flat(cv, idx, res):
+    """Flat (B, Fc * R^2) positions of texel idx (B, P, Fc) of each face,
+    for gather / scatter over cv's faces."""
+    fc = cv.shape[1]
+    face = torch.arange(fc, device=cv.device) * (res * res)
+    return (idx + face).reshape(idx.shape[0], -1)
+
+
+def _tex_colors(cv, c, tex_res):
+    """The three (B, P, Fc) texture channels of each pair: the soft
+    texture interpolated at the weights c, or the surface texel."""
+    c0, c1, c2 = c
+    if not tex_res:
+        return [c0 * cv[:, None, :, C.S_STEX + ch]
+                + c1 * cv[:, None, :, C.S_STEX + 3 + ch]
+                + c2 * cv[:, None, :, C.S_STEX + 6 + ch] for ch in range(3)]
+    b, fc = cv.shape[:2]
+    n = tex_res * tex_res
+    texels = cv[..., C.S_SURF:C.S_SURF + 3 * n].reshape(b, fc * n, 3)
+    flat = _texel_flat(cv, texel_index(c0, c1, tex_res), tex_res)
+    return [texels[..., ch].gather(1, flat).reshape(c0.shape)
+            for ch in range(3)]
+
+
 def _chunk_size(b, p, f, faces_per_chunk):
     if faces_per_chunk is None:
         faces_per_chunk = max(1, _CHUNK_ELEMS // max(b * p, 1))
     return max(1, min(faces_per_chunk, f))
 
 
-def raster_fused_bwd_plain(consts: torch.Tensor, planes: dict, grads: dict,
-                           image_size: int, sigma1: float, sigma2: float,
-                           gamma_d: float, gamma_t: float,
-                           faces_per_chunk: int | None = None
-                           ) -> torch.Tensor:
-    """Gradient of the loss with respect to the packed constants.
+def _gate(visit, f0, fc):
+    """The (B, P, fc) pair gate of faces f0 .. f0 + fc from the (B, P,
+    n_chunks) visit mask, or None."""
+    if visit is None:
+        return None
+    ci = torch.arange(f0, f0 + fc, device=visit.device) // C.FF
+    return visit[:, :, ci]
 
-    consts (B, F, K) float32; planes: the forward's BWD_PLANES, grads: the
-    cotangents of BWD_GRADS, each (B, S, S). Returns (B, F, K) float32.
 
-    A transcription of the TPU kernel's per-pair chain `_bwd_chunk_grads`
-    (pallas_raster.py:877-1075), not autograd of the forward: interpolation
-    weights are constants (slots S_WA, S_FRONT, S_BBOX, S_HTEX get zero);
-    the coverage cotangent is g * p_tot / max(1 - D, 1e-6); the depth chain
-    runs where sigma1 covers; texture weights are contrib2 & z_ok; dis2 takes
-    its gradient from the first minimizing edge; then zn -> zp -> 1/z. Pairs
-    that neither sigma covers contribute nothing, as in the CUDA kernel,
-    which skips them."""
-    b, f, _ = consts.shape
+def _check_tex_res(consts, tex_res):
+    if consts.shape[-1] != C.k_for(tex_res):
+        raise ValueError(f"tex_res={tex_res} needs {C.k_for(tex_res)} "
+                         f"packed slots per face, got {consts.shape[-1]}")
+
+
+def _bwd(consts, planes, grads, image_size, sigma1, sigma2, gamma_d,
+         gamma_t, tex_res, visit, faces_per_chunk):
+    _check_tex_res(consts, tex_res)
+    b, f, k_tot = consts.shape
     s_img = image_size
     p = s_img * s_img
     dev = consts.device
@@ -152,16 +215,18 @@ def raster_fused_bwd_plain(consts: torch.Tensor, planes: dict, grads: dict,
     m_t, s_t = pix(planes, "m_t"), pix(planes, "s_t")
     g_a1, g_a2, g_d = (pix(grads, n) for n in ("alpha1", "alpha2", "depth"))
     g_t = [pix(grads, n) for n in ("texr", "texg", "texb")]
-    out = torch.zeros((b, f, C.K), dtype=torch.float32, device=dev)
+    out = torch.zeros((b, f, k_tot), dtype=torch.float32, device=dev)
     neg_inf = torch.tensor(float("-inf"), device=dev)
 
     for f0 in range(0, f, fc):
         cv = consts[:, f0:f0 + fc]
+        n_f = cv.shape[1]
 
         def col(j):
             return cv[:, None, :, j]
 
-        g = _pair_geometry(cv, px, py, p2, sigma1, sigma2)
+        g = _pair_geometry(cv, px, py, p2, sigma1, sigma2,
+                           _gate(visit, f0, n_f))
         c0, c1, c2 = g["c"]
         d1, d2, sign, zp, zn = g["d1"], g["d2"], g["sign"], g["zp"], g["zn"]
         con1, con2, z_ok = g["contrib1"], g["contrib2"], g["z_ok"]
@@ -188,8 +253,7 @@ def raster_fused_bwd_plain(consts: torch.Tensor, planes: dict, grads: dict,
         # texture softmax chain
         u_t = torch.exp((torch.where(con2 & z_ok, zn, neg_inf) - m_t)
                         * inv_gt) / s_t
-        cols = [c0 * col(C.S_STEX + ch) + c1 * col(C.S_STEX + 3 + ch)
-                + c2 * col(C.S_STEX + 6 + ch) for ch in range(3)]
+        cols = _tex_colors(cv, g["c"], tex_res)
         gr_dot = (g_t[0] * (cols[0] - out_t[0]) + g_t[1] * (cols[1] - out_t[1])
                   + g_t[2] * (cols[2] - out_t[2]))
         wgt_t = d2 * u_t
@@ -220,25 +284,65 @@ def raster_fused_bwd_plain(consts: torch.Tensor, planes: dict, grads: dict,
         for k, ck in enumerate((c0, c1, c2)):
             slots[C.S_IZ + k] = diz * ck
             slots[C.S_Z + k] = dl_dval * ck
-            for ch in range(3):
-                slots[C.S_STEX + 3 * k + ch] = dcol[ch] * ck
+            if not tex_res:
+                for ch in range(3):
+                    slots[C.S_STEX + 3 * k + ch] = dcol[ch] * ck
         for slot, v in slots.items():
             out[:, f0:f0 + fc, slot] = v.sum(dim=1)
+        if tex_res:
+            # each pair's texture cotangent goes to its one texel
+            n = tex_res * tex_res
+            flat = _texel_flat(cv, texel_index(c0, c1, tex_res), tex_res)
+            for ch in range(3):
+                acc = torch.zeros((b, n_f * n), dtype=torch.float32,
+                                  device=dev)
+                acc.scatter_add_(1, flat, dcol[ch].reshape(b, -1))
+                out[:, f0:f0 + fc, C.S_SURF + ch:C.S_SURF + 3 * n:3] = \
+                    acc.reshape(b, n_f, n)
     return out
 
 
-def raster_fused_fwd_plain(consts: torch.Tensor, image_size: int,
-                           sigma1: float, sigma2: float, gamma_d: float,
-                           gamma_t: float,
-                           faces_per_chunk: int | None = None,
-                           pair_counts: dict | None = None) -> dict:
-    """consts (B, F, K) float32 -> dict of the 13 (B, S, S) float32 planes
-    named in PLANES.
+def raster_fused_bwd_plain(consts: torch.Tensor, planes: dict, grads: dict,
+                           image_size: int, sigma1: float, sigma2: float,
+                           gamma_d: float, gamma_t: float, tex_res: int = 0,
+                           faces_per_chunk: int | None = None
+                           ) -> torch.Tensor:
+    """Gradient of the loss with respect to the packed constants.
 
-    pair_counts, when given, is filled with the number of (face, pixel)
-    pairs that do each part of the work: "cover" (some coverage: inside or
-    within a cutoff), "cover1" / "cover2" (coverage at sigma1 / sigma2),
-    "tex" (texture softmax) and "depth" (depth softmax and hard test)."""
+    consts (B, F, K) float32; planes: the forward's BWD_PLANES, grads: the
+    cotangents of BWD_GRADS, each (B, S, S). Returns (B, F, K) float32.
+
+    A transcription of the TPU kernel's per-pair chain `_bwd_chunk_grads`
+    (pallas_raster.py:877-1075), not autograd of the forward: interpolation
+    weights are constants (slots S_WA, S_FRONT, S_BBOX, S_HTEX get zero);
+    the coverage cotangent is g * p_tot / max(1 - D, 1e-6); the depth chain
+    runs where sigma1 covers; texture weights are contrib2 & z_ok; dis2 takes
+    its gradient from the first minimizing edge; then zn -> zp -> 1/z. With
+    tex_res the texture cotangent goes to the pair's texel slot
+    S_SURF + 3t + ch (:1016-1020) and S_STEX gets zero. Pairs that neither
+    sigma covers contribute nothing, as in the CUDA kernels, which skip
+    them."""
+    return _bwd(consts, planes, grads, image_size, sigma1, sigma2, gamma_d,
+                gamma_t, tex_res, None, faces_per_chunk)
+
+
+def raster_fused_bwd_chunk_plain(consts: torch.Tensor, spans: torch.Tensor,
+                                 masks: torch.Tensor, planes: dict,
+                                 grads: dict, image_size: int, sigma1: float,
+                                 sigma2: float, gamma_d: float,
+                                 gamma_t: float, tex_res: int = 0,
+                                 faces_per_chunk: int | None = None
+                                 ) -> torch.Tensor:
+    """raster_fused_bwd_plain over the pairs the dense-chunk schedule visits
+    (spans, masks from chunks.compute_chunk_info at image_size)."""
+    visit = visited_chunks(spans, masks, image_size, consts.shape[1] // C.FF)
+    return _bwd(consts, planes, grads, image_size, sigma1, sigma2, gamma_d,
+                gamma_t, tex_res, visit, faces_per_chunk)
+
+
+def _fwd(consts, image_size, sigma1, sigma2, gamma_d, gamma_t, tex_res,
+         visit, faces_per_chunk, pair_counts):
+    _check_tex_res(consts, tex_res)
     bg_eps, z_offset = C.BG_EPS, C.EYE_OFFSET
     b, f, _ = consts.shape
     s_img = image_size
@@ -269,7 +373,8 @@ def raster_fused_fwd_plain(consts: torch.Tensor, image_size: int,
         def col(j):
             return cv[:, None, :, j]                      # (B, 1, Fc)
 
-        g = _pair_geometry(cv, px, py, p2, sigma1, sigma2)
+        g = _pair_geometry(cv, px, py, p2, sigma1, sigma2,
+                           _gate(visit, f0, cv.shape[1]))
         w0, w1, w2 = g["w"]
         c0, c1, c2 = g["c"]
         d1, d2, zp, z_ok, zn = g["d1"], g["d2"], g["zp"], g["z_ok"], g["zn"]
@@ -279,8 +384,7 @@ def raster_fused_fwd_plain(consts: torch.Tensor, image_size: int,
         p2_prod = p2_prod * torch.prod(1.0 - d2, dim=-1)
 
         # texture softmax (sigma2 coverage)
-        tex = [c0 * col(C.S_STEX + ch) + c1 * col(C.S_STEX + 3 + ch)
-               + c2 * col(C.S_STEX + 6 + ch) for ch in range(3)]
+        tex = _tex_colors(cv, g["c"], tex_res)
         zn_t = torch.where(contrib2 & z_ok, zn, neg_inf)
         m_t, s_t, acc_t = _softmax_update(m_t, s_t, acc_t, zn_t, d2, tex,
                                           gamma_t)
@@ -319,3 +423,34 @@ def raster_fused_fwd_plain(consts: torch.Tensor, image_size: int,
               acc_t[0] / s_t, acc_t[1] / s_t, acc_t[2] / s_t,
               hard[0], hard[1], hard[2], m_d, s_d, m_t, s_t]
     return {n: v.reshape(b, s_img, s_img) for n, v in zip(PLANES, planes)}
+
+
+def raster_fused_fwd_plain(consts: torch.Tensor, image_size: int,
+                           sigma1: float, sigma2: float, gamma_d: float,
+                           gamma_t: float, tex_res: int = 0,
+                           faces_per_chunk: int | None = None,
+                           pair_counts: dict | None = None) -> dict:
+    """consts (B, F, K) float32 -> dict of the 13 (B, S, S) float32 planes
+    named in PLANES. tex_res = R > 0 takes the texture from the surface
+    texels at S_SURF (K = common.k_for(R)).
+
+    pair_counts, when given, is filled with the number of (face, pixel)
+    pairs that do each part of the work: "cover" (some coverage: inside or
+    within a cutoff), "cover1" / "cover2" (coverage at sigma1 / sigma2),
+    "tex" (texture softmax) and "depth" (depth softmax and hard test)."""
+    return _fwd(consts, image_size, sigma1, sigma2, gamma_d, gamma_t,
+                tex_res, None, faces_per_chunk, pair_counts)
+
+
+def raster_fused_fwd_chunk_plain(consts: torch.Tensor, spans: torch.Tensor,
+                                 masks: torch.Tensor, image_size: int,
+                                 sigma1: float, sigma2: float,
+                                 gamma_d: float, gamma_t: float,
+                                 tex_res: int = 0,
+                                 faces_per_chunk: int | None = None,
+                                 pair_counts: dict | None = None) -> dict:
+    """raster_fused_fwd_plain over the pairs the dense-chunk schedule visits
+    (spans, masks from chunks.compute_chunk_info at image_size)."""
+    visit = visited_chunks(spans, masks, image_size, consts.shape[1] // C.FF)
+    return _fwd(consts, image_size, sigma1, sigma2, gamma_d, gamma_t,
+                tex_res, visit, faces_per_chunk, pair_counts)

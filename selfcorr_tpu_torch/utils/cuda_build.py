@@ -4,11 +4,11 @@ Each source under a `csrc/` directory has a plain C interface and includes no
 PyTorch header, so `nvcc` compiles it for sm_90a in seconds into a shared
 library under selfcorr_tpu_torch/_build/ (gitignored). `build_all` starts one
 `nvcc` per source, all at once, and waits for them; a failed build raises with
-the compiler's output. Libraries are named by a hash of their source and
-flags and written through a temporary file and a rename, so a rebuilt source
-never loads a stale library and concurrent processes never see a half-written
-one. Nothing here runs at import time: the CPU tests import every module on
-machines with no CUDA toolkit.
+the compiler's output. Libraries are named by a hash of their source, the
+headers beside it and the flags, and written through a temporary file and a
+rename, so a rebuilt source never loads a stale library and concurrent
+processes never see a half-written one. Nothing here runs at import time:
+the CPU tests import every module on machines with no CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -34,8 +34,15 @@ def _nvcc() -> str:
 
 
 def library_path(source: str, flags=CUDA_FLAGS) -> str:
-    with open(source, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
+    """The library of `source`, named by a hash of the source, the headers
+    beside it (*.cuh, which it may include) and the flags."""
+    here = os.path.dirname(source)
+    headers = sorted(os.path.join(here, n) for n in os.listdir(here)
+                     if n.endswith(".cuh"))
+    digest = hashlib.sha1(" ".join(flags).encode())
+    for path in [source] + headers:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -1,8 +1,9 @@
-"""Tests of the port that need a CUDA card: the fused-rasterizer forward
-(B1) and backward (B2) kernels and the DINO attention kernel (B3) against
-their plain PyTorch versions, the predict path on the card against the same
-path on the CPU, and one full-width train step on the card. They skip
-without a card.
+"""Tests of the port that need a CUDA card: the fused-rasterizer kernels,
+forward and backward in the compact schedule (B1, B2) and the dense-chunk
+schedule (B1', B2'), with and without surface texels, and the DINO
+attention kernel (B3) against their plain PyTorch versions, the predict path
+on the card against the same path on the CPU, and one full-width train step
+on the card. They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch; tests/conftest.py imports JAX, so skip it there:
@@ -22,7 +23,8 @@ from selfcorr_tpu_torch.eval.tester import Tester, make_test_dataset
 from selfcorr_tpu_torch.ops import attention as A
 from selfcorr_tpu_torch.ops.rasterizer import api, common as C, kernel
 from selfcorr_tpu_torch.ops.rasterizer.reference import (
-    BWD_GRADS, PLANES, raster_fused_bwd_plain, raster_fused_fwd_plain)
+    BWD_GRADS, PLANES, raster_fused_bwd_chunk_plain, raster_fused_bwd_plain,
+    raster_fused_fwd_chunk_plain, raster_fused_fwd_plain)
 from selfcorr_tpu_torch.utils.device import set_fp32_precision
 
 # kernel vs plain, absolute: the on-chip gate's bounds of the JAX package
@@ -90,6 +92,15 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         kernel.raster_fused_fwd_cuda(consts[..., :32], 16, 1e-4, 1e-3,
                                      1e-4, 1e-2)
+    with pytest.raises(ValueError, match="tex_res"):
+        kernel.raster_fused_fwd_cuda(consts, 16, 1e-4, 1e-3, 1e-4, 1e-2, 2)
+    spans, masks = api.chunk_info(consts, 16, 1e-4, 1e-3)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        kernel.raster_fused_fwd_chunk_cuda(consts[:, :8], spans, masks, 16,
+                                           1e-4, 1e-3, 1e-4, 1e-2)
+    with pytest.raises(ValueError, match="spans"):
+        kernel.raster_fused_fwd_chunk_cuda(consts, spans[:, :2], masks, 16,
+                                           1e-4, 1e-3, 1e-4, 1e-2)
 
 
 def test_predict_on_card_matches_cpu(cuda, tmp_path):
@@ -194,5 +205,83 @@ def test_full_width_train_step_on_card(cuda, tmp_path):
     torch.cuda.synchronize()
     assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
     assert float(metrics["bad_grad"]) == 0.0 and trainer.state.step == 1
-    assert kernel.LAUNCHES == {"raster_fused_fwd": 1, "raster_fused_bwd": 1}
+    assert kernel.LAUNCHES == {"raster_fused_fwd": 1, "raster_fused_bwd": 1,
+                               "raster_fused_fwd_chunk": 0,
+                               "raster_fused_bwd_chunk": 0}
     assert A.LAUNCHES == {"dino_flash_attn": 9}
+
+
+def assert_fwd_close(got, ref):
+    for n in PLANES:
+        assert torch.isfinite(got[n]).all(), n
+        err = (got[n] - ref[n]).abs()
+        if n in ("s_d", "s_t"):
+            err = err / ref[n].abs().clamp(min=1.0)
+            assert float(err.max()) <= S_RTOL, n
+        else:
+            assert float(err.max()) <= ATOL[n], n
+
+
+def surface_consts(cuda, seed, b, nf, res, s):
+    fv, st, ht = make_scene(seed, b, nf)
+    g = torch.Generator().manual_seed(seed)
+    tex = torch.rand((b, nf, res * res, 3), generator=g) if res else None
+    return C.pack_constants(fv, st, ht, surf_tex=tex,
+                            n_bands=C.bands_for(s)).to(cuda)
+
+
+@pytest.mark.parametrize("tex_res", [0, 6])
+@pytest.mark.parametrize("s", [48, 64])
+def test_chunk_forward_kernel_matches_plain_and_b1(cuda, s, tex_res):
+    """B1' against its plain version at the B1 gates, and against B1 on the
+    same sorted constants: the two walk the faces in one order and skip
+    only pairs that cover nothing, so they agree bit for bit."""
+    consts = surface_consts(cuda, 7, 3, 300, tex_res, s)
+    spans, masks = api.chunk_info(consts, s, 1e-4, 1e-3)
+    before = dict(kernel.LAUNCHES)
+    got = api.raster_fused_fwd(consts, s, tex_res=tex_res,
+                               chunks=(spans, masks))
+    b1 = api.raster_fused_fwd(consts, s, tex_res=tex_res)
+    assert kernel.LAUNCHES["raster_fused_fwd_chunk"] == \
+        before["raster_fused_fwd_chunk"] + 1
+    ref = raster_fused_fwd_chunk_plain(consts, spans, masks, s, 1e-4, 1e-3,
+                                       1e-4, 1e-2, tex_res)
+    torch.cuda.synchronize()
+    assert_fwd_close(got, ref)
+    assert_fwd_close(b1, raster_fused_fwd_plain(consts, s, 1e-4, 1e-3, 1e-4,
+                                                1e-2, tex_res))
+    for n in PLANES:
+        assert torch.equal(got[n], b1[n]), n
+
+
+@pytest.mark.parametrize("tex_res", [0, 6])
+def test_chunk_backward_kernel_matches_plain_and_repeats_bitwise(cuda,
+                                                                 tex_res):
+    """B2' (and B2 with texels) against the plain versions, every slot
+    within 1e-4 of the slot's largest value, and a second launch
+    identical."""
+    sg = (1e-4, 1e-3, 1e-4, 1e-2)
+    s = 64
+    consts = surface_consts(cuda, 9, 3, 300, tex_res, s)
+    spans, masks = api.chunk_info(consts, s, 1e-4, 1e-3)
+    planes = raster_fused_fwd_plain(consts, s, *sg, tex_res)
+    g = torch.Generator().manual_seed(0)
+    grads = {n: torch.randn(3, s, s, generator=g).to(cuda)
+             for n in BWD_GRADS}
+    before = kernel.LAUNCHES["raster_fused_bwd_chunk"]
+    got = api.raster_fused_bwd(consts, planes, grads, s, *sg, tex_res,
+                               chunks=(spans, masks))
+    again = kernel.raster_fused_bwd_chunk_cuda(consts, spans, masks, planes,
+                                               grads, s, *sg, tex_res)
+    assert kernel.LAUNCHES["raster_fused_bwd_chunk"] == before + 2
+    ref = raster_fused_bwd_chunk_plain(consts, spans, masks, planes, grads,
+                                       s, *sg, tex_res)
+    b2 = kernel.raster_fused_bwd_cuda(consts, planes, grads, s, *sg, tex_res)
+    b2_ref = raster_fused_bwd_plain(consts, planes, grads, s, *sg, tex_res)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    for k, r in ((got, ref), (b2, b2_ref)):
+        lim = 1e-4 * r.abs().amax(dim=(0, 1))
+        assert bool(((k - r).abs() <= lim).all())
+    if tex_res:
+        assert float(got[..., C.S_SURF:].abs().max()) > 0

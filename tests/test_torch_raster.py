@@ -10,9 +10,9 @@ and chip_smoke.py).
 Tolerances are those of tests/test_raster_pallas.py: alpha / tex / match
 2e-3, depth 2e-2 (the sigma = 1e-4 sigmoid amplifies rounding ~1e4x at
 triangle edges; the Pallas kernel derives its sigma1 sigmoid from the sigma2
-exponential by exponentiation). The JAX kernel walks faces in its sorted
-order, so the match plane may differ only at exact z-ties; the random
-scenes here have none.
+exponential by exponentiation). Both packages sort the faces the same way
+at packing, so both walk them in one order and the match plane's "earliest
+face wins exact z-ties" picks the same face.
 """
 import numpy as np
 import jax
@@ -81,7 +81,7 @@ def jax_planes(fv, st, ht, s, gamma_t):
 
 def torch_planes(fv, st, ht, s, gamma_t, faces_per_chunk=None):
     consts = C.pack_constants(torch.tensor(fv), torch.tensor(st),
-                              torch.tensor(ht))
+                              torch.tensor(ht), n_bands=C.bands_for(s))
     out = raster_fused_fwd_plain(consts, s, 1e-4, 1e-3, 1e-4, gamma_t,
                                  faces_per_chunk=faces_per_chunk)
     return {k: v.numpy() for k, v in out.items()}
@@ -141,12 +141,13 @@ def test_zero_faces_render_background():
 
 
 def test_pack_constants_matches_jax_slots():
-    """Same slot layout as pallas_raster.pack_constants (unsorted)."""
+    """Same slot layout as pallas_raster.pack_constants (unsorted; the
+    sorted and padded packing is held in tests/test_torch_raster_chunk.py)."""
     fv, st, ht = make_scene(seed=2, b=2, n_faces=16)
     ref = np.asarray(PR.pack_constants(jnp.asarray(fv), jnp.asarray(st),
                                        jnp.asarray(ht), sort_faces=False))
     got = C.pack_constants(torch.tensor(fv), torch.tensor(st),
-                           torch.tensor(ht)).numpy()
+                           torch.tensor(ht), sort_faces=False).numpy()
     assert got.shape == ref.shape == (2, 16, C.K)
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
 

@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
   2. build    compile the five kernels from the repo's sources, one nvcc per
               source, all started together: in ops/rasterizer/csrc/ B1
               raster_fwd.cu, B2 raster_bwd.cu, B1' raster_fwd_chunk.cu, B2'
-              raster_bwd_chunk.cu; B3 ops/csrc/flash_attn.cu
+              raster_bwd_chunk.cu; B3 ops/csrc/flash_attn.cu; print each
+              kernel's registers and spills (nvcc --resource-usage)
   3. B1       hold the rasterizer forward against its plain PyTorch version
               on the card, all 13 planes, at (a) the panel shape B=1 S=320
               (laptop prior), (b) the training-render shape B=8 S=256 (laptop
@@ -16,7 +17,8 @@ Phases, in order; any failure exits non-zero:
               cases
   4. B2       the rasterizer backward against its plain version at the same
               scenes, with seeded random cotangents on the 6 differentiable
-              planes: every slot, and a second launch bit-identical
+              planes: every slot, and a second launch bit-identical; the
+              pixels its face boxes visit and the pairs they cover
   5. B1', B2' the dense-chunk forward and backward against their plain
               versions at the same scenes (a)-(c), B1' against B1 on the
               same constants (whether the two are bit-identical is
@@ -26,7 +28,10 @@ Phases, in order; any failure exits non-zero:
               against their plain versions, second backward launches
               bit-identical
   7. B3       the DINO attention against its plain version at the trunk's
-              shape (32, 6, 1025, 64) and at ragged T 1, 65, 129
+              shape (32, 6, 1025, 64) on its strided views and on contiguous
+              tensors, and at ragged T on both sides of the kernel's 192-row
+              query tiles, 128-key tiles and 16-key short last tile; its
+              time over scaled_dot_product_attention's
   8. predict  the predict path (selfcorr_tpu_torch.predict.main) on cuda at
               Wild6D-laptop width on the synthetic eval set with the render
               panels; launch counts are zeroed just before and read just
@@ -45,8 +50,9 @@ Phases, in order; any failure exits non-zero:
               here, from one state, batch and set of draws, the DINO features
               computed once for both
  10. report   every kernel held against its plain version at each training
-              path's inputs; one JSON line per the kernel table, then the
-              result line
+              path's inputs (B1' and B2' also at the surface path's, texels
+              and all); one JSON line per the kernel table, then the result
+              line
 
 Tolerances, B1 (kernel vs plain): alpha 2e-3, depth 1.4e-2 absolute; tex /
 match 3.8e-3 relative to max(1, |plain|), which is absolute for colours in
@@ -68,8 +74,8 @@ so the output may round one bf16 ulp (<= 2^-7 of its value) apart; the floor
 is for a p that straddles a bf16 rounding boundary, which moves the output
 by one ulp of p times |v| / l, far below 2^-12 max|v| unless p / l is large.
 Held at the trunk's shape on random inputs and on "tail" inputs whose real
-scores are all far below zero, where the 63 padding keys of the last tile
-would take most of the softmax if they were not masked, and at ragged T.
+scores are all far below zero, where the padding keys of the last tile would
+take most of the softmax if they were not masked, and at ragged T.
 One train step, kernels vs plain versions (from one state with its update
 count set to 0, one batch, one set of draws): aux losses 1e-3 relative,
 group norms 1e-3 relative, every parameter's gradient before clipping
@@ -317,19 +323,23 @@ def clone(a):
     return a
 
 
-def time_ms(fn, reps=20, warmup=3):
+def time_ms(fn, reps=20, warmup=3, trials=3):
+    """ms per call of fn: CUDA events around `reps` calls run back to back
+    (so the card never waits on the host between them), the median over
+    `trials` such runs; one call, timed alone, for reps=1."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(trials if reps > 1 else 1):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
 
 
@@ -347,6 +357,33 @@ def raster_args(name, args):
     s, *sg = rest[:5]
     return consts, chunks, pg, s, tuple(sg), (rest[5] if len(rest) > 5
                                               else 0)
+
+
+def visited_pixels(consts, s, sigma1, sigma2):
+    """The pixels of the faces' padded boxes (raster_common.cuh face_box,
+    in float32 as the kernel computes them), which B2 visits, and the lanes
+    that visit them in B2's 8 x 4 sub-tiles."""
+    from selfcorr_tpu_torch.ops.rasterizer import common as C
+    from selfcorr_tpu_torch.ops.rasterizer.kernel import cull_pad
+    bb = consts[..., C.S_BBOX:C.S_BBOX + 4].float()
+    pad = torch.tensor(cull_pad(sigma1, sigma2), dtype=torch.float32)
+    fs = torch.tensor(float(s))
+    xlo, xhi = bb[..., 0] - pad, bb[..., 1] + pad
+    ylo, yhi = bb[..., 2] - pad, bb[..., 3] + pad
+    ok = (xlo <= 2.0) & (xhi >= -2.0) & (ylo <= 2.0) & (yhi >= -2.0)
+    half = torch.tensor(0.5)
+    cl = torch.clamp((xlo * fs + fs - 1.0) * half, min=0.0)
+    ch = torch.clamp((xhi * fs + fs - 1.0) * half, max=float(s - 1))
+    rl = torch.clamp((fs - 1.0 - yhi * fs) * half, min=0.0)
+    rh = torch.clamp((fs - 1.0 - ylo * fs) * half, max=float(s - 1))
+    c_lo = torch.clamp(torch.floor(cl) - 1, min=0)
+    c_hi = torch.clamp(torch.ceil(ch) + 1, max=s - 1)
+    r_lo = torch.clamp(torch.floor(rl) - 1, min=0)
+    r_hi = torch.clamp(torch.ceil(rh) + 1, max=s - 1)
+    ncol = torch.where(ok, c_hi - c_lo + 1, 0).clamp(min=0)
+    nrow = torch.where(ok, r_hi - r_lo + 1, 0).clamp(min=0)
+    lanes = torch.ceil(ncol / 8) * 8 * torch.ceil(nrow / 4) * 4
+    return int((ncol * nrow).sum()), int(lanes.sum())
 
 
 def raster_costs(name, *args):
@@ -376,9 +413,13 @@ def raster_costs(name, *args):
               + (16 if bwd else 13) * b * s * s * 4)
     t_ops = ops / FP32_PEAK * 1e3
     t_bytes = nbytes / HBM_BW * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, pairs=pairs, ops=ops, bytes=nbytes,
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="operations" if t_ops >= t_bytes else "bytes")
+    out = dict(ms=ms, plain_ms=plain_ms, pairs=pairs, ops=ops, bytes=nbytes,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes")
+    if bwd:
+        out["visited_pixels"], out["visited_lanes"] = visited_pixels(
+            consts.cpu(), s, *sg[:2])
+    return out
 
 
 def pack(dev, s, fv, st, ht, surf=None):
@@ -463,6 +504,14 @@ def scene_cases(rng):
     return cases
 
 
+def print_b2(where, c):
+    print(f"[B2] {where}: kernel {c['ms']} ms, plain {c['plain_ms']} ms, "
+          f"bound {c['bound_ms']} ms ({c['bound_by']}; {c['ops']} operations "
+          f"over pairs {c['pairs']}; {c['bytes']} bytes); pixels visited "
+          f"{c['visited_pixels']} (lanes {c['visited_lanes']}), covered "
+          f"pairs {c['pairs']['cover']}", flush=True)
+
+
 def b2_phase(rng, dev):
     from selfcorr_tpu_torch.ops.rasterizer import common as C
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
@@ -489,10 +538,7 @@ def b2_phase(rng, dev):
             c = raster_costs("raster_fused_bwd", consts, planes, grads, s,
                              *sg)
             timings[name] = c
-            print(f"[B2] {name}: kernel {c['ms']} ms, plain {c['plain_ms']} "
-                  f"ms, bound {c['bound_ms']} ms ({c['bound_by']}; "
-                  f"{c['ops']} operations over pairs {c['pairs']}; "
-                  f"{c['bytes']} bytes)", flush=True)
+            print_b2(name, c)
     if failures:
         fail("B2: " + "; ".join(failures))
     return timings
@@ -631,29 +677,52 @@ def attn_costs(q, k, v):
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def qkv_views(b, h, t, dev, gen, tail=False):
+def qkv_views(b, h, t, dev, gen, tail=False, contiguous=False):
     """q, k, v (B, H, T, 64) bf16 views of one (B, T, 3, H, 64) tensor, the
-    trunk's layout. With `tail`, q >= 0 and k <= 0, so every real score is
-    far below the 0 that an unmasked zero padding key would score."""
+    trunk's layout, or with `contiguous` three contiguous tensors. With
+    `tail`, q >= 0 and k <= 0, so every real score is far below the 0 that
+    an unmasked zero padding key would score."""
     qkv = torch.randn((b, t, 3, h, 64), generator=gen, device=dev)
     if tail:
         qkv[:, :, 0] = qkv[:, :, 0].abs()
         qkv[:, :, 1] = -qkv[:, :, 1].abs()
     qkv = qkv.bfloat16()
-    return tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+    views = tuple(qkv[:, :, i].transpose(1, 2) for i in range(3))
+    return tuple(x.contiguous() for x in views) if contiguous else views
 
 
-B3_CASES = (("trunk", (32, 6, 1025), False),
-            ("trunk tail", (32, 6, 1025), True),
-            ("T=1", (2, 6, 1), False), ("T=65", (2, 6, 65), False),
-            ("T=129", (2, 6, 129), False))
+# B3's tiles (ops/csrc/flash_attn.cu): 192 query rows per block in three
+# consumers of 64, 128 keys per tile, and a last key tile of at most 16
+# keys run short. (name, (B, H, T), tail, contiguous)
+B3_QTILE, B3_KTILE = 192, 128
+B3_CASES = (("trunk", (32, 6, 1025), False, False),
+            ("trunk tail", (32, 6, 1025), True, False),
+            ("trunk contiguous", (32, 6, 1025), False, True),
+            ("T=1", (2, 6, 1), False, False),
+            ("T=64", (2, 6, 64), False, False),
+            ("T=65", (2, 6, 65), False, False),
+            ("T=129", (2, 6, 129), False, False)) + tuple(
+    (f"T={t}", (2, 6, t), True, False)
+    for t in (B3_KTILE - 1, B3_KTILE, B3_KTILE + 1, B3_KTILE + 16,
+              B3_KTILE + 17, 2 * B3_KTILE + 1, B3_QTILE - 1, B3_QTILE,
+              B3_QTILE + 1, 2 * B3_QTILE + 1)) + (
+    (f"T={2 * B3_QTILE + 1} contiguous", (3, 2, 2 * B3_QTILE + 1), False,
+     True),)
+
+
+def print_b3(where, c):
+    print(f"[B3] {where}: kernel {c['ms']} ms, plain {c['plain_ms']} ms, "
+          f"scaled_dot_product_attention {c['library_ms']} ms (kernel / SDPA "
+          f"{c['ms'] / c['library_ms']:.3f}), bound {c['bound_ms']} ms "
+          f"({c['bound_by']}; {c['ops']} operations, {c['bytes']} bytes; "
+          f"{100 * c['bound_ms'] / c['ms']:.1f}% of the bound)", flush=True)
 
 
 def b3_phase(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     failures, cost, errs = [], None, {}
-    for name, shape, tail in B3_CASES:
-        q, k, v = qkv_views(*shape, dev, gen, tail)
+    for name, shape, tail, contiguous in B3_CASES:
+        q, k, v = qkv_views(*shape, dev, gen, tail, contiguous)
         _, err, ok = hold("dino_flash_attn", q, k, v)
         errs[name] = err
         print(f"[B3] {name} (B, H, T) = {shape}: max|err| {err:.3g}",
@@ -662,11 +731,7 @@ def b3_phase(dev):
             failures.append(f"{name}: disagrees with the plain version")
         if name == "trunk":
             cost = attn_costs(q, k, v)
-            print(f"[B3] {shape}: kernel {cost['ms']} ms, plain "
-                  f"{cost['plain_ms']} ms, scaled_dot_product_attention "
-                  f"{cost['library_ms']} ms, bound {cost['bound_ms']} ms "
-                  f"({cost['bound_by']}; {cost['ops']} operations, "
-                  f"{cost['bytes']} bytes)", flush=True)
+            print_b3(str(shape), cost)
     if failures:
         fail("B3: " + "; ".join(failures))
     return dict(cost, max_abs_err_by_case=errs)
@@ -1030,6 +1095,20 @@ def step_kernels_vs_plain(state, batch, draws, cfg, path="train"):
             "updates_max_of_lr": upd[worst["upd"]], "noise_leaves": noise}
 
 
+def with_chunks(captured):
+    """Besides the compact kernels' captured inputs, the dense-chunk
+    kernels' at the same constants, planes and cotangents, with the chunk
+    cull of those constants (chunks.compute_chunk_info)."""
+    from selfcorr_tpu_torch.ops.rasterizer.api import chunk_info
+    out = dict(captured)
+    for compact, chunk in (FWD_KERNELS, BWD_KERNELS):
+        if compact in captured:
+            consts, *rest = captured[compact]
+            cs, sg = raster_args(compact, captured[compact])[3:5]
+            out[chunk] = (consts, *chunk_info(consts, cs, *sg[:2]), *rest)
+    return out
+
+
 def report_main_path(path, captured):
     """Each kernel against its plain version at training path `path`'s
     first inputs; times and bounds there."""
@@ -1047,6 +1126,10 @@ def report_main_path(path, captured):
               f"{c['ms']} ms, plain {c['plain_ms']} ms, bound {c['bound_ms']}"
               f" ms ({c['bound_by']}), library {c.get('library_ms')} ms, "
               f"max|err| {c['max_abs_err']:.3g}", flush=True)
+        if name == "raster_fused_bwd":
+            print_b2(f"the {path} path's inputs", c)
+        elif name == "dino_flash_attn":
+            print_b3(f"the {path} path's inputs", c)
     return out
 
 
@@ -1101,6 +1184,14 @@ def main() -> int:
     built = [os.path.basename(p) for p in KR.SOURCES.values()]
     print(f"[build] {', '.join(built + ['flash_attn.cu'])} built (one nvcc "
           f"each, in parallel) and bound in {build_s:.2f} s", flush=True)
+    usage = {}
+    for src, log in cuda_build.LOGS.items():
+        usage[os.path.basename(src)] = lines = [
+            ln.strip() for ln in log.splitlines()
+            if any(w in ln for w in ("entry function", "registers", "spill",
+                                     "arning"))]
+        for ln in lines:
+            print(f"[build] {os.path.basename(src)}: {ln}", flush=True)
 
     phase("B1 vs plain version")
     rng = np.random.RandomState(0)
@@ -1154,8 +1245,10 @@ def main() -> int:
         in steps.items()) + f" on {smi}", flush=True)
 
     phase("report")
+    # B1' and B2' with texels at the surface path's inputs too
+    captured["train_surface"] = with_chunks(captured["train_surface"])
     main_costs = {p: report_main_path(p, c) for p, c in captured.items()}
-    summary = {"card": smi, "build_s": build_s,
+    summary = {"card": smi, "build_s": build_s, "resource_usage": usage,
                "predict_ms_per_batch": per_batch * 1e3,
                "predict_fps_batch16": fps, "predict_profile": breakdown,
                "launches": launches,

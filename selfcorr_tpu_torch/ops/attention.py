@@ -6,7 +6,7 @@ returns softmax(q k^T / sqrt(D)) v as (B, H, T, D):
   * bfloat16 inputs (the trunk's `dino_attn_bf16` default) compute what the
     TPU library flash kernel computes (jax.experimental.pallas.ops.tpu.
     flash_attention, called at selfcorr_tpu/models/vit.py:72): scores in f32
-    from bf16 inputs, an online softmax in f32 over tiles of 64 keys, p
+    from bf16 inputs, an online softmax in f32 over tiles of BLOCK_K keys, p
     rounded to bf16 before the p v product, the output rounded to bf16. CUDA
     tensors go to kernel B3 (csrc/flash_attn.cu) always, CPU tensors to
     `flash_attention_plain`, which does the same roundings in plain PyTorch;
@@ -28,7 +28,7 @@ from selfcorr_tpu_torch.utils import cuda_build
 
 SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                       "flash_attn.cu")
-BLOCK_K = 64      # keys per tile of the online softmax (the kernel's)
+BLOCK_K = 128     # keys per tile of the online softmax (the kernel's BK)
 HEAD_DIM = 64     # the kernel's head dimension
 
 # launches of the kernel, counted by its wrapper where it launches
@@ -115,6 +115,9 @@ def flash_attention_cuda(q, k, v) -> torch.Tensor:
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
                 t, *_strides(q), *_strides(k), *_strides(v), *_strides(o),
                 1.0 / math.sqrt(d), stream)
+    if rc >= 1000:
+        raise RuntimeError(f"flash_attn: cuTensorMapEncodeTiled refused the "
+                           f"views: CUresult {rc - 1000}")
     if rc != 0:
         raise RuntimeError(f"flash_attn launch failed: CUDA error {rc}")
     LAUNCHES["dino_flash_attn"] += 1

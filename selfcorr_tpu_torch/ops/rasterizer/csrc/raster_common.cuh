@@ -4,6 +4,8 @@
 // forward's per-pair update
 // `shade` and the backward's per-pair gradient `pair_grad`, the surface
 // texel pick, and a deterministic warp reduction of texel gradients.
+// `pair_grad` is `pair_geom` (the cover test) followed by `pair_chain`, so
+// that B2 can compact the covered pixels between the two.
 //
 // The per-pair arithmetic is the plain PyTorch versions' (../reference.py),
 // operation for operation; the sources are built with -fmad=false so that
@@ -224,60 +226,99 @@ __device__ __forceinline__ PixBox face_box(const float* c, int S,
   return bx;
 }
 
-// One (face, pixel) pair of the backward (the TPU kernel's
-// `_bwd_chunk_grads`, pallas_raster.py:877-1075): accumulates the pair's
-// gradient of slots SEG, E2, PC, IZ, Z into acc[0..26] and, without
-// surface texels, of STEX into acc[27..35]. With texels, the pair's texture
-// cotangent dcol goes to one texel, returned in *texel (else -1) for the
-// caller to add. pix: the 16 planes (raster_bwd.cu), plane: their stride,
-// o: the pixel's offset. Returns without effect for an uncovered pair.
-__device__ __forceinline__ void pair_grad(const float* c, float x, float y,
-                                         const float* __restrict__ pix,
-                                         size_t plane, size_t o,
-                                         const Params& prm, int tex_res,
-                                         float* acc, int* texel,
-                                         float* dcol) {
+// The geometry of one (face, pixel) pair of the backward, in the forward's
+// operation order: the barycentric planes, the squared distance to the
+// face's edges and the FIRST edge that attains it (the only edge dis2
+// passes its gradient to), with that edge's raw segment parameter.
+struct PairGeom {
+  float w0, w1, w2, dis2, sp;
+  int e_min;
+  bool inside;
+};
+
+// Fills g for the pair at (x, y); returns whether either sigma covers it
+// (con1 || con2). Every gradient term of an uncovered pair is zero.
+__device__ __forceinline__ bool pair_geom(const float* c, float x, float y,
+                                          const Params& prm, PairGeom& g) {
   const float p2 = x * x + y * y;
-  // --- geometry, in the forward's operation order
-  const float w0 = c[S_WA + 0] * x + c[S_WA + 1] * y + c[S_WA + 2];
-  const float w1 = c[S_WA + 3] * x + c[S_WA + 4] * y + c[S_WA + 5];
-  const float w2 = c[S_WA + 6] * x + c[S_WA + 7] * y + c[S_WA + 8];
-  const bool inside = (w0 > 0.0f) && (w0 < 1.0f) && (w1 > 0.0f) &&
-                      (w1 < 1.0f) && (w2 > 0.0f) && (w2 < 1.0f);
-  float sp[3], tt[3], d2e[3];
+  g.w0 = c[S_WA + 0] * x + c[S_WA + 1] * y + c[S_WA + 2];
+  g.w1 = c[S_WA + 3] * x + c[S_WA + 4] * y + c[S_WA + 5];
+  g.w2 = c[S_WA + 6] * x + c[S_WA + 7] * y + c[S_WA + 8];
+  g.inside = (g.w0 > 0.0f) && (g.w0 < 1.0f) && (g.w1 > 0.0f) &&
+             (g.w1 < 1.0f) && (g.w2 > 0.0f) && (g.w2 < 1.0f);
+  float sp[3], d2e[3];
   float dis2 = INFINITY;
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
     sp[e] = c[S_SEG + 3 * e] * x + c[S_SEG + 3 * e + 1] * y +
             c[S_SEG + 3 * e + 2];
-    tt[e] = fminf(fmaxf(sp[e], 0.0f), 1.0f);
+    const float tt = fminf(fmaxf(sp[e], 0.0f), 1.0f);
     const float pv0 = p2 + c[S_PC + 3 * e] * x +
                       c[S_PC + 3 * e + 1] * y + c[S_PC + 3 * e + 2];
-    d2e[e] = fmaxf(pv0 - tt[e] * (2.0f * sp[e] - tt[e]) * c[S_E2 + e],
-                   0.0f);
+    d2e[e] = fmaxf(pv0 - tt * (2.0f * sp[e] - tt) * c[S_E2 + e], 0.0f);
     dis2 = fminf(dis2, d2e[e]);
   }
-  const bool con1 = inside || (dis2 < prm.cut1);
-  const bool con2 = inside || (dis2 < prm.cut2);
-  if (!(con1 || con2)) return;  // every term below is zero
-  const float sgn = inside ? 1.0f : -1.0f;
-  const float sdis = inside ? -dis2 : dis2;  // -sign * dis2
-  const float d1 = con1 ? 1.0f / (1.0f + expf(sdis * prm.inv_sigma1)) : 0.0f;
-  const float d2 = con2 ? 1.0f / (1.0f + expf(sdis * prm.inv_sigma2)) : 0.0f;
+  g.dis2 = dis2;
+  g.e_min = d2e[0] == dis2 ? 0 : (d2e[1] == dis2 ? 1 : 2);
+  g.sp = g.e_min == 0 ? sp[0] : (g.e_min == 1 ? sp[1] : sp[2]);
+  return g.inside || (dis2 < prm.cut1) || (dis2 < prm.cut2);
+}
 
-  float c0 = fminf(fmaxf(w0, 0.0f), 1.0f);
-  float c1 = fminf(fmaxf(w1, 0.0f), 1.0f);
-  float c2 = fminf(fmaxf(w2, 0.0f), 1.0f);
-  const float wsum = fmaxf(c0 + c1 + c2, 1e-5f);
-  c0 = c0 / wsum;
-  c1 = c1 / wsum;
-  c2 = c2 / wsum;
-  const float zp =
-      1.0f / (c0 * c[S_IZ] + c1 * c[S_IZ + 1] + c2 * c[S_IZ + 2]);
-  const bool z_ok = (zp >= prm.near_) && (zp <= prm.far_);
-  const float zn = (prm.far_ - zp) * prm.inv_range;
+// Where pair_chain adds the first minimizing edge's 7 terms (SEG x, y, 1;
+// E2; PC x, y, 1): the slot registers acc[0..20] (RegEdges), or a lane's
+// column of 21 slots in shared memory, 32 floats apart (ColumnEdges), which
+// frees 21 registers. Either adds the same terms in the same order.
+struct RegEdges {
+  float* acc;
+  __device__ __forceinline__ void add(int e_min, const float (&t)[7]) const {
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      if (e_min == e) {
+        acc[3 * e + 0] += t[0];
+        acc[3 * e + 1] += t[1];
+        acc[3 * e + 2] += t[2];
+        acc[9 + e] += t[3];
+        acc[12 + 3 * e + 0] += t[4];
+        acc[12 + 3 * e + 1] += t[5];
+        acc[12 + 3 * e + 2] += t[6];
+      }
+    }
+  }
+};
+struct ColumnEdges {
+  float* col;  // slot j of this lane at col[32 j]
+  __device__ __forceinline__ void add(int e_min, const float (&t)[7]) const {
+    float* seg = col + 32 * (3 * e_min);
+    float* pc = col + 32 * (12 + 3 * e_min);
+    seg[0] += t[0];
+    seg[32] += t[1];
+    seg[64] += t[2];
+    col[32 * (9 + e_min)] += t[3];
+    pc[0] += t[4];
+    pc[32] += t[5];
+    pc[64] += t[6];
+  }
+};
 
-  // --- this pixel's residuals and cotangents
+// The chains of one covered (face, pixel) pair of the backward (the TPU
+// kernel's `_bwd_chunk_grads`, pallas_raster.py:877-1075) from its geometry
+// g (pair_geom): accumulates the pair's gradient of slots SEG, E2, PC (of
+// the first minimizing edge only, through `edges`; the other edges' terms
+// are zero), IZ, Z into acc[21..26] and, without surface texels, of STEX
+// into acc[27..35].
+// With texels, the pair's texture cotangent dcol goes to one texel,
+// returned in *texel for the caller to add. pix: the 16 planes
+// (raster_bwd.cu), plane: their stride, o: the pixel's offset.
+template <class Edges>
+__device__ __forceinline__ void pair_chain(const float* c, float x, float y,
+                                          const PairGeom& g,
+                                          const float* __restrict__ pix,
+                                          size_t plane, size_t o,
+                                          const Params& prm, int tex_res,
+                                          const Edges& edges, float* acc,
+                                          int* texel, float* dcol) {
+  // --- this pixel's residuals and cotangents, loaded first so that their
+  // latency hides behind the arithmetic below
   const float p1_tot = 1.0f - pix[0 * plane + o];
   const float p2_tot = 1.0f - pix[1 * plane + o];
   const float out_d = pix[2 * plane + o];
@@ -294,6 +335,25 @@ __device__ __forceinline__ void pair_grad(const float* c, float x, float y,
   const float g_r = pix[13 * plane + o];
   const float g_g = pix[14 * plane + o];
   const float g_b = pix[15 * plane + o];
+
+  const bool con1 = g.inside || (g.dis2 < prm.cut1);
+  const bool con2 = g.inside || (g.dis2 < prm.cut2);
+  const float sgn = g.inside ? 1.0f : -1.0f;
+  const float sdis = g.inside ? -g.dis2 : g.dis2;  // -sign * dis2
+  const float d1 = con1 ? 1.0f / (1.0f + expf(sdis * prm.inv_sigma1)) : 0.0f;
+  const float d2 = con2 ? 1.0f / (1.0f + expf(sdis * prm.inv_sigma2)) : 0.0f;
+
+  float c0 = fminf(fmaxf(g.w0, 0.0f), 1.0f);
+  float c1 = fminf(fmaxf(g.w1, 0.0f), 1.0f);
+  float c2 = fminf(fmaxf(g.w2, 0.0f), 1.0f);
+  const float wsum = fmaxf(c0 + c1 + c2, 1e-5f);
+  c0 = c0 / wsum;
+  c1 = c1 / wsum;
+  c2 = c2 / wsum;
+  const float zp =
+      1.0f / (c0 * c[S_IZ] + c1 * c[S_IZ + 1] + c2 * c[S_IZ + 2]);
+  const bool z_ok = (zp >= prm.near_) && (zp <= prm.far_);
+  const float zn = (prm.far_ - zp) * prm.inv_range;
 
   // --- coverage (alpha2) chain
   float dL_dD2 = g_a2 * p2_tot / fmaxf(1.0f - d2, 1e-6f);
@@ -346,22 +406,14 @@ __device__ __forceinline__ void pair_grad(const float* c, float x, float y,
   const float dL_dzp = -dL_dzn * prm.inv_range;
   const float zp2 = zp * zp;
 
-  // --- dis2 -> the first minimizing edge's coefficients
-  int e_min = 2;
-  if (d2e[1] == dis2) e_min = 1;
-  if (d2e[0] == dis2) e_min = 0;
-#pragma unroll
-  for (int e = 0; e < 3; ++e) {
-    const float f_e = (e == e_min) ? dL_ddis2 : 0.0f;
-    const float ds_raw = f_e * (-2.0f * tt[e] * c[S_E2 + e]);
-    acc[3 * e + 0] += ds_raw * x;
-    acc[3 * e + 1] += ds_raw * y;
-    acc[3 * e + 2] += ds_raw;
-    acc[9 + e] += f_e * (tt[e] * tt[e] - 2.0f * tt[e] * sp[e]);
-    acc[12 + 3 * e + 0] += f_e * x;
-    acc[12 + 3 * e + 1] += f_e * y;
-    acc[12 + 3 * e + 2] += f_e;
-  }
+  // --- dis2 -> the first minimizing edge's slots SEG (3), E2 (1), PC (3);
+  // the terms are formed once and added to that edge's slots only
+  const float f = dL_ddis2;
+  const float tt = fminf(fmaxf(g.sp, 0.0f), 1.0f);
+  const float ds_raw = f * (-2.0f * tt * c[S_E2 + g.e_min]);
+  const float terms[7] = {ds_raw * x, ds_raw * y, ds_raw,
+                          f * (tt * tt - 2.0f * tt * g.sp), f * x, f * y, f};
+  edges.add(g.e_min, terms);
   acc[21] += -dL_dzp * zp2 * c0;
   acc[22] += -dL_dzp * zp2 * c1;
   acc[23] += -dL_dzp * zp2 * c2;
@@ -384,6 +436,20 @@ __device__ __forceinline__ void pair_grad(const float* c, float x, float y,
     acc[34] += dcol_g * c2;
     acc[35] += dcol_b * c2;
   }
+}
+
+// One (face, pixel) pair of the backward: pair_geom, then pair_chain where
+// either sigma covers the pair.
+__device__ __forceinline__ void pair_grad(const float* c, float x, float y,
+                                         const float* __restrict__ pix,
+                                         size_t plane, size_t o,
+                                         const Params& prm, int tex_res,
+                                         float* acc, int* texel,
+                                         float* dcol) {
+  PairGeom g;
+  if (pair_geom(c, x, y, prm, g))
+    pair_chain(c, x, y, g, pix, plane, o, prm, tex_res, RegEdges{acc}, acc,
+               texel, dcol);
 }
 
 // The sum of v over the 32 lanes of a warp, in a fixed order (xor

@@ -118,16 +118,19 @@ def _check_chunks(consts, spans, masks, s):
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _pix(consts, planes, grads, s):
-    """The 16 (B, S, S) planes of the backward, stacked: BWD_PLANES, then
-    the cotangents of BWD_GRADS."""
+def _pix(consts, planes, grads, s, dim=0):
+    """The 16 (B, S, S) planes of the backward, stacked along `dim` (0: (16,
+    B, S, S) for B2', 1: image-major (B, 16, S, S) for B2): BWD_PLANES,
+    then the cotangents of BWD_GRADS."""
     b = consts.shape[0]
     pix = torch.stack([planes[n] for n in BWD_PLANES]
-                      + [grads[n] for n in BWD_GRADS]).float().contiguous()
-    if pix.device != consts.device or pix.shape != (16, b, s, s):
+                      + [grads[n] for n in BWD_GRADS],
+                      dim=dim).float().contiguous()
+    if pix.device != consts.device or pix.shape[2:] != (s, s) or \
+            pix.shape[:2] != ((16, b) if dim == 0 else (b, 16)):
         raise ValueError(f"planes and cotangents must be ({b}, {s}, {s}) "
-                         f"on {consts.device}, got {tuple(pix.shape[1:])} "
-                         f"on {pix.device}")
+                         f"on {consts.device}, got 16 stacked as "
+                         f"{tuple(pix.shape)} on {pix.device}")
     return pix
 
 
@@ -173,7 +176,7 @@ def raster_fused_bwd_cuda(consts: torch.Tensor, planes: dict, grads: dict,
     _check_consts(consts, "raster_fused_bwd_cuda", tex_res)
     b, f, k = consts.shape
     s = int(image_size)
-    pix = _pix(consts, planes, grads, s)
+    pix = _pix(consts, planes, grads, s, dim=1)
     consts = consts.contiguous()
     grad = torch.empty_like(consts)
     _launch("raster_fused_bwd", consts, consts.data_ptr(), pix.data_ptr(),

@@ -7,7 +7,9 @@ library under selfcorr_tpu_torch/_build/ (gitignored). `build_all` starts one
 the compiler's output. Libraries are named by a hash of their source, the
 headers beside it and the flags, and written through a temporary file and a
 rename, so a rebuilt source never loads a stale library and concurrent
-processes never see a half-written one. Nothing here runs at import time:
+processes never see a half-written one. nvcc runs with --resource-usage:
+the registers, shared memory and spills of each kernel it builds are kept
+in LOGS. Nothing here runs at import time:
 the CPU tests import every module on machines with no CUDA toolkit.
 """
 from __future__ import annotations
@@ -22,10 +24,12 @@ PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(PACKAGE, "_build")
 # -fmad=false: every multiply and add rounds on its own, as the plain
 # PyTorch versions' separate operations do
-CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false"]
+CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a", "-fmad=false",
+              "--resource-usage"]
 _LINK_FLAGS = ["-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
 
 _loaded: dict = {}
+LOGS: dict = {}  # {source: nvcc's output} for the sources built here
 
 
 def _nvcc() -> str:
@@ -67,6 +71,7 @@ def build_all(sources, flags=CUDA_FLAGS) -> dict:
         log, _ = proc.communicate()
         if proc.returncode == 0:
             os.replace(tmp, path)
+            LOGS[src] = log
         else:
             os.unlink(tmp)
             failed.append(f"{os.path.relpath(src, PACKAGE)}:\n{log}")

@@ -182,6 +182,60 @@ def test_attention_kernel_matches_plain(cuda, t, tail):
         A.attention(q.float(), k.float(), v.float())
 
 
+@pytest.mark.parametrize("contiguous", [False, True])
+@pytest.mark.parametrize("t", [127, 128, 129, 144, 145, 191, 192, 193, 257,
+                               385])
+def test_attention_kernel_at_tile_boundaries(cuda, t, contiguous):
+    """B3 on both sides of its 192-row query tiles, its 128-key tiles and
+    its short last key tile (at most 16 keys), on the trunk's strided views
+    and on contiguous tensors, "tail" inputs (every real score far below the
+    0 of an unmasked zero padding key): within 2^-7 |plain| + 2^-12
+    max|v|."""
+    g = torch.Generator(device=cuda).manual_seed(t)
+    qkv = torch.randn((2, t, 3, 6, 64), generator=g, device=cuda)
+    qkv[:, :, 0] = qkv[:, :, 0].abs()
+    qkv[:, :, 1] = -qkv[:, :, 1].abs()
+    qkv = qkv.bfloat16()
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    if contiguous:
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    got = A.flash_attention_cuda(q, k, v)
+    ref = A.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == q.shape
+    lim = 2.0 ** -7 * ref.float().abs() + 2.0 ** -12 * float(
+        v.float().abs().max())
+    assert bool(((got.float() - ref.float()).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("tex_res", [0, 6])
+def test_backward_kernel_small_faces_repeat_bitwise(cuda, tex_res):
+    """B2 where each face covers fewer than 32 pixels, so every warp's only
+    batch of covered pixels is partly empty: within 1e-4 of each slot's
+    largest plain value, and a second launch identical."""
+    sg = (1e-4, 1e-3, 1e-4, 1e-2)
+    s, n_faces = 40, 60
+    fv, st, ht = make_scene(11, 2, n_faces, size=0.04)
+    g = torch.Generator().manual_seed(tex_res)
+    tex = torch.rand((2, n_faces, tex_res * tex_res, 3), generator=g) \
+        if tex_res else None
+    consts = C.pack_constants(fv, st, ht, surf_tex=tex).to(cuda)
+    pairs = {}
+    planes = raster_fused_fwd_plain(consts, s, *sg, tex_res,
+                                    pair_counts=pairs)
+    assert 0 < pairs["cover"] < 32 * 2 * n_faces
+    grads = {n: torch.randn(2, s, s, generator=g).to(cuda) for n in BWD_GRADS}
+    got = kernel.raster_fused_bwd_cuda(consts, planes, grads, s, *sg, tex_res)
+    again = kernel.raster_fused_bwd_cuda(consts, planes, grads, s, *sg,
+                                         tex_res)
+    ref = raster_fused_bwd_plain(consts, planes, grads, s, *sg, tex_res)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    lim = 1e-4 * ref.abs().amax(dim=(0, 1))
+    assert bool(((got - ref).abs() <= lim).all())
+    assert float(got.abs().max()) > 0
+
+
 def test_full_width_train_step_on_card(cuda, tmp_path):
     """One train step at Wild6D-laptop width (img 256, batch 8 x 4, laptop
     prior) on the card: finite metrics, and each kernel launched."""

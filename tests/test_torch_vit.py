@@ -2,7 +2,7 @@
 
 Weights are the flax DinoViTS8 initialization carried by
 from_jax_dino_params; the input is a numpy-seeded 32 x 32 batch (17 tokens,
-a ragged count for the 64-key tiles).
+a ragged count for the key tiles).
 
 * The f32 trunk (attn_bf16 off) equals flax DinoViTS8 within 1e-4.
 * With attn_bf16 the port runs the flash arithmetic of the TPU library
@@ -18,8 +18,12 @@ a ragged count for the 64-key tiles).
   port's bf16 trunk lies nearer the JAX bf16 trunk, in max and in mean, than
   the port's f32 trunk does.
 * The attention's plain flash version against the f32 softmax at ragged T,
-  within the bf16 rounding of p and of the output.
+  within the bf16 rounding of p and of the output, on both sides of the key
+  tile; the plain version's key tile is the kernel's.
 """
+import os
+import re
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -78,7 +82,8 @@ def test_checkpoint_names(trunks):
     assert not any(k.startswith("blocks.10.") for k in sd)
 
 
-@pytest.mark.parametrize("t", [1, 17, 65, 130])
+@pytest.mark.parametrize("t", [1, 17, 65, 130, A.BLOCK_K - 1, A.BLOCK_K,
+                               A.BLOCK_K + 1, 2 * A.BLOCK_K + 1])
 def test_plain_flash_matches_softmax(t):
     """Flash arithmetic vs the materialized f32 softmax on the same bf16
     inputs: p rounds to bf16 (2^-9 relative, moving the output by at most
@@ -91,6 +96,16 @@ def test_plain_flash_matches_softmax(t):
     ref = A.attention_f32_plain(q.float(), k.float(), v.float())
     lim = 2.0 ** -8 * ref.abs() + 2.0 ** -8 * float(v.float().abs().max())
     assert bool(((got.float() - ref).abs() <= lim).all())
+
+
+def test_plain_key_tile_is_the_kernels():
+    """flash_attention_plain takes its online-softmax steps over the
+    kernel's key tiles: BLOCK_K equals BK in csrc/flash_attn.cu."""
+    with open(A.SOURCE) as f:
+        src = f.read()
+    bk = re.search(r"constexpr int BK = (\d+);", src)
+    assert bk and int(bk.group(1)) == A.BLOCK_K
+    assert os.path.basename(A.SOURCE) == "flash_attn.cu"
 
 
 def test_routes():

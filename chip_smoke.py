@@ -9,12 +9,16 @@ Phases, in order; any failure exits non-zero:
               source, all started together: in ops/rasterizer/csrc/ B1
               raster_fwd.cu, B2 raster_bwd.cu, B1' raster_fwd_chunk.cu, B2'
               raster_bwd_chunk.cu; B3 ops/csrc/flash_attn.cu; print each
-              kernel's registers and spills (nvcc --resource-usage)
+              kernel's registers and spills (nvcc --resource-usage) and the
+              forwards' shared-memory loads (LDS, LDS.128) in their SASS
   3. B1       hold the rasterizer forward against its plain PyTorch version
               on the card, all 13 planes, at (a) the panel shape B=1 S=320
               (laptop prior), (b) the training-render shape B=8 S=256 (laptop
               prior under 8 poses; icosphere(3) scattered scene), (c) edge
-              cases
+              cases; wherever B1 or B1' is timed, the (face, pixel) pairs it
+              shades (the CPU mirror of its culls, kernel.visited_pairs)
+              beside the covered pairs, the faces its warps walk (mean and
+              longest), and B1's launch and block cull timed alone
   4. B2       the rasterizer backward against its plain version at the same
               scenes, with seeded random cotangents on the 6 differentiable
               planes: every slot, and a second launch bit-identical; the
@@ -419,7 +423,85 @@ def raster_costs(name, *args):
     if bwd:
         out["visited_pixels"], out["visited_lanes"] = visited_pixels(
             consts.cpu(), s, *sg[:2])
+    else:
+        out.update(fwd_cull(name, consts, chunks, s, sg[:2]))
+    if name == "raster_fused_fwd":
+        # B1's launch and block cull alone, timed without host gaps: what a
+        # cheaper block cull could save at most
+        moved = off_screen(consts)
+        out["cull_only_ms"] = graph_ms(lambda: kernel(moved, *args[1:]))
     return out
+
+
+def off_screen(consts):
+    """consts with every face's bbox moved off screen: B1 on them runs its
+    launch and its block cull of every face, and shades nothing."""
+    from selfcorr_tpu_torch.ops.rasterizer import common as C
+    moved = consts.clone()
+    moved[..., C.S_BBOX:C.S_BBOX + 2] += 10.0
+    return moved
+
+
+def graph_ms(fn, reps=20):
+    """ms per call of fn: `reps` calls captured in one CUDA graph, its
+    replay timed by CUDA events, the median of 3 replays; the card runs
+    the kernels with no host work between them, however short they are."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def fwd_cull(name, consts, chunks, s, sigmas):
+    """The (face, pixel) pairs on which forward `name` runs shade, from the
+    CPU mirror of its culls (kernel.visited_pairs), and the pairs the earlier
+    16 x 16 block cull of B1 shaded at the same inputs."""
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    consts = consts.cpu()
+    chunks = tuple(t.cpu() for t in chunks) or None
+    # faces each warp shades: a warp walks them one after another, so the
+    # longest walk is the kernel's critical path when few warps are busy
+    faces = KR.fwd_visits(consts, s, *sigmas, chunks).sum(-1).flatten()
+    busy = faces[faces > 0].float()
+    return {"visited_pairs": KR.visited_pairs(consts, s, *sigmas, chunks),
+            "block16_cull_pairs": KR.block_cull_pairs(consts, s, *sigmas),
+            "warp_faces_max": int(faces.max()),
+            "warp_faces_mean": float(busy.mean()) if busy.numel() else 0.0,
+            "busy_warps": int(busy.numel())}
+
+
+def print_fwd(tag, where, c):
+    """A forward's time beside its bound, and the pairs it shaded beside
+    the covered ones."""
+    print(f"[{tag}] {where}: kernel {c['ms']} ms, plain {c['plain_ms']} ms, "
+          f"bound {c['bound_ms']} ms ({c['bound_by']}; "
+          f"{100 * c['bound_ms'] / c['ms']:.1f}% of the bound); pairs "
+          f"shaded {c['visited_pairs']} = "
+          f"{c['visited_pairs'] / max(c['pairs']['cover'], 1):.3f}x the "
+          f"{c['pairs']['cover']} covered (a 16 x 16 block cull: "
+          f"{c['block16_cull_pairs']}); faces a busy warp shades: mean "
+          f"{c['warp_faces_mean']:.1f}, longest {c['warp_faces_max']} "
+          f"({c['busy_warps']} busy warps)"
+          + (f"; launch and block cull alone (every bbox off screen, "
+             f"CUDA-graph replay): {c['cull_only_ms']} ms"
+             if "cull_only_ms" in c else ""), flush=True)
 
 
 def pack(dev, s, fv, st, ht, surf=None):
@@ -465,10 +547,9 @@ def kernel_phase(rng, dev):
             if timed:
                 c = raster_costs("raster_fused_fwd", consts, s, *sg)
                 timings[name] = c
-                print(f"[kernel] {tag}: kernel {c['ms']} ms, plain "
-                      f"{c['plain_ms']} ms, bound {c['bound_ms']} ms "
-                      f"({c['bound_by']}; {c['ops']} operations over pairs "
-                      f"{c['pairs']}; {c['bytes']} bytes)", flush=True)
+                print(f"[kernel] {tag}: {c['ops']} operations over pairs "
+                      f"{c['pairs']}; {c['bytes']} bytes", flush=True)
+                print_fwd("kernel", tag, c)
     if failures:
         fail("kernel disagrees with its plain version: "
              + "; ".join(failures))
@@ -1128,6 +1209,9 @@ def report_main_path(path, captured):
               f"max|err| {c['max_abs_err']:.3g}", flush=True)
         if name == "raster_fused_bwd":
             print_b2(f"the {path} path's inputs", c)
+        elif name in FWD_KERNELS:
+            print_fwd("B1" if name == "raster_fused_fwd" else "B1'",
+                      f"the {path} path's inputs", c)
         elif name == "dino_flash_attn":
             print_b3(f"the {path} path's inputs", c)
     return out
@@ -1192,6 +1276,14 @@ def main() -> int:
                                      "arning"))]
         for ln in lines:
             print(f"[build] {os.path.basename(src)}: {ln}", flush=True)
+    # the forwards' shared-memory loads: static counts in their SASS
+    lds = {}
+    for name in FWD_KERNELS:
+        for fn, ops in cuda_build.sass_opcodes(KR.SOURCES[name]).items():
+            lds[fn] = {op: n for op, n in ops.items()
+                       if op.startswith("LDS")}
+            print(f"[build] {fn}: shared-memory loads in its SASS {lds[fn]}",
+                  flush=True)
 
     phase("B1 vs plain version")
     rng = np.random.RandomState(0)
@@ -1222,11 +1314,10 @@ def main() -> int:
     consts = captured[0][0]
     predict_cost = raster_costs("raster_fused_fwd", *captured[0])
     print(f"[predict] B1 at the predict path's inputs: B={consts.shape[0]} "
-          f"F={consts.shape[1]} S={captured[0][1]}; kernel "
-          f"{predict_cost['ms']} ms, plain {predict_cost['plain_ms']} ms, "
-          f"bound {predict_cost['bound_ms']} ms ({predict_cost['bound_by']}; "
+          f"F={consts.shape[1]} S={captured[0][1]}; "
           f"{predict_cost['ops']} operations over pairs "
-          f"{predict_cost['pairs']})", flush=True)
+          f"{predict_cost['pairs']}", flush=True)
+    print_fwd("predict", "B1 at the predict path's inputs", predict_cost)
 
     launches, captured, steps, parity = {"predict": predict_launches}, {}, \
         {}, {}
@@ -1249,6 +1340,7 @@ def main() -> int:
     captured["train_surface"] = with_chunks(captured["train_surface"])
     main_costs = {p: report_main_path(p, c) for p, c in captured.items()}
     summary = {"card": smi, "build_s": build_s, "resource_usage": usage,
+               "fwd_sass_lds": lds,
                "predict_ms_per_batch": per_batch * 1e3,
                "predict_fps_batch16": fps, "predict_profile": breakdown,
                "launches": launches,

@@ -2,7 +2,8 @@
 // raster_bwd.cu, raster_fwd_chunk.cu, raster_bwd_chunk.cu): the packed slot
 // layout (../common.py), the parameters, the dense-chunk tile geometry, the
 // forward's per-pair update
-// `shade` and the backward's per-pair gradient `pair_grad`, the surface
+// `shade` and its walk over staged faces `walk_staged` (the warp's sub-tile
+// cull), the backward's per-pair gradient `pair_grad`, the surface
 // texel pick, and a deterministic warp reduction of texel gradients.
 // `pair_grad` is `pair_geom` (the cover test) followed by `pair_chain`, so
 // that B2 can compact the covered pixels between the two.
@@ -92,12 +93,17 @@ __device__ __forceinline__ int texel_index(float c0, float c1, int res) {
   return min(max((int)idx, 0), res * res - 1);  // NaN converts to 0
 }
 
-// One (face, pixel) pair of the forward: c points at the face's packed
-// slots, q is the pixel's carry. Pairs that neither sigma covers change
-// nothing.
-__device__ __forceinline__ void shade(const float* c, float x, float y,
-                                     float p2, const Params& prm,
-                                     int tex_res, Carry& q) {
+constexpr int N_FIX = 60;  // slots 0 .. S_HTEX + 8, as 15 float4
+static_assert(N_FIX >= S_HTEX + 9 && N_FIX % 4 == 0, "fixed slots");
+
+// One (face, pixel) pair of the forward: c holds the face's packed slots
+// 0 .. S_HTEX + 8 (in registers: walk_staged copies them there), tex points
+// at its surface texels (slot S_SURF, shared memory), q is the pixel's
+// carry. Pairs that neither sigma covers change nothing.
+__device__ __forceinline__ void shade(const float* c, const float* tex,
+                                     float x, float y, float p2,
+                                     const Params& prm, int tex_res,
+                                     Carry& q) {
   const float w0 = c[S_WA + 0] * x + c[S_WA + 1] * y + c[S_WA + 2];
   const float w1 = c[S_WA + 3] * x + c[S_WA + 4] * y + c[S_WA + 5];
   const float w2 = c[S_WA + 6] * x + c[S_WA + 7] * y + c[S_WA + 8];
@@ -140,7 +146,7 @@ __device__ __forceinline__ void shade(const float* c, float x, float y,
   if (con2) {  // texture softmax at sigma2
     float cr, cg, cbl;
     if (tex_res > 0) {
-      const float* tx = c + S_SURF + 3 * texel_index(c0, c1, tex_res);
+      const float* tx = tex + 3 * texel_index(c0, c1, tex_res);
       cr = tx[0];
       cg = tx[1];
       cbl = tx[2];
@@ -197,6 +203,112 @@ __device__ __forceinline__ void write_planes(const Carry& q, float* out,
   out[10 * plane + o] = q.s_d;
   out[11 * plane + o] = q.m_t;
   out[12 * plane + o] = q.s_t;
+}
+
+// ---------------------------------------------------------------------------
+// The forwards' schedule (B1 raster_fwd.cu, B1' raster_fwd_chunk.cu). A
+// block stages faces in shared memory, in ascending packed order, as rows
+// of V float4 (the used slots rounded up to a multiple of 4). Each warp
+// owns a sub-tile of SUB_COLS columns x LANE_ROWS rows, a pixel a lane
+// (lane l: column l % SUB_COLS, row l / SUB_COLS), with its carry in
+// registers. The warp tests the staged faces' bboxes against its sub-tile's
+// box padded by the cull radius (the block cull's arithmetic, so it is
+// exact: a face it skips covers no pixel of the sub-tile), and copies the
+// slots of each face that passes into registers, one LDS.128 per 4 slots.
+constexpr int SUB_COLS = 8;
+constexpr int LANE_ROWS = 32 / SUB_COLS;
+static_assert(S_BBOX % 4 == 1, "the bbox is slots 1-3 of a float4 + 1");
+
+__host__ __device__ inline int staged_vecs(int tex_res) {
+  return (used_slots(tex_res) + 3) / 4;
+}
+
+// Shared memory a block stages faces in: 8 blocks of 4 warps, each with
+// its few KB of static arrays, still fit an SM's 228 KB, so the texels'
+// longer rows (168 floats at R = 6) stage fewer faces at a time rather than
+// take warps off the SM.
+constexpr int STAGE_BYTES = 22 * 1024;
+
+// Copies one face row of V float4 from device to shared memory, 16 lanes
+// (h = lane % 16) together.
+__device__ __forceinline__ void stage_row(float4* dst,
+                                          const float4* __restrict__ src,
+                                          int V, int h) {
+  for (int v = h; v < V; v += 16) dst[v] = __ldg(src + v);
+}
+
+struct SubTile {
+  float x, y, p2;  // the lane's pixel
+  bool valid;      // it lies in the image (or the tile)
+  Carry q;
+  int row, col;
+  bool any;        // the sub-tile holds a pixel to shade
+  float bx_lo, bx_hi, by_lo, by_hi;  // its box, padded by the cull radius
+};
+
+// The warp's sub-tile at (r0, c0): pixels at rows < r_end, columns < c_end
+// (the image's, or the tile's, end) are shaded.
+__device__ __forceinline__ void sub_tile(SubTile& w, int r0, int c0,
+                                         int r_end, int c_end, int S,
+                                         const Params& prm) {
+  const int lane = threadIdx.x & 31;
+  w.col = c0 + lane % SUB_COLS;
+  w.row = r0 + lane / SUB_COLS;
+  w.valid = (w.row < r_end) && (w.col < c_end);
+  w.x = pixel_x(w.col, S, prm);
+  w.y = pixel_y(w.row, S, prm);
+  w.p2 = w.x * w.x + w.y * w.y;
+  w.q = carry_init(prm);
+  w.any = (r0 < r_end) && (c0 < c_end);
+  const int c_hi = min(c0 + SUB_COLS, c_end) - 1;
+  const int r_hi = min(r0 + LANE_ROWS, r_end) - 1;
+  w.bx_lo = pixel_x(c0, S, prm) - prm.pad;
+  w.bx_hi = pixel_x(c_hi, S, prm) + prm.pad;
+  w.by_hi = pixel_y(r0, S, prm) + prm.pad;
+  w.by_lo = pixel_y(r_hi, S, prm) - prm.pad;
+}
+
+// Shades the lane's pixel against the n faces staged at sc4 (rows of V
+// float4), in order, skipping each face whose padded bbox misses the
+// sub-tile: the lanes test 32 faces at once, one each, and the warp walks
+// the set bits of their ballot in ascending order (warp-uniform).
+__device__ __forceinline__ void walk_staged(const float4* sc4, int n, int V,
+                                            const Params& prm, int tex_res,
+                                            SubTile& w) {
+  const int lane = threadIdx.x & 31;
+  for (int j0 = 0; j0 < n; j0 += 32) {
+    bool hit = false;
+    if (j0 + lane < n) {
+      const float4* r = sc4 + (j0 + lane) * V;
+      const float4 bb = r[S_BBOX / 4];  // front, xmin, xmax, ymin
+      const float ymax = r[S_BBOX / 4 + 1].x;
+      hit = (bb.y <= w.bx_hi) && (bb.z >= w.bx_lo) && (bb.w <= w.by_hi) &&
+            (ymax >= w.by_lo);
+    }
+    for (unsigned m = __ballot_sync(FULL, hit); m; m &= m - 1) {
+      const float4* r = sc4 + (j0 + __ffs(m) - 1) * V;
+      float c[N_FIX];  // registers: 15 LDS.128
+#pragma unroll
+      for (int v = 0; v < N_FIX / 4; ++v) {
+        const float4 t = r[v];
+        c[4 * v + 0] = t.x;
+        c[4 * v + 1] = t.y;
+        c[4 * v + 2] = t.z;
+        c[4 * v + 3] = t.w;
+      }
+      if (w.valid)
+        shade(c, reinterpret_cast<const float*>(r) + S_SURF, w.x, w.y, w.p2,
+              prm, tex_res, w.q);
+    }
+  }
+}
+
+// The lane's 13 planes into out, (13, B, S, S).
+__device__ __forceinline__ void write_sub_tile(const SubTile& w, float* out,
+                                               int B, int S, int b) {
+  if (w.valid)
+    write_planes(w.q, out, (size_t)B * S * S,
+                 ((size_t)b * S + w.row) * S + w.col);
 }
 
 // The padded pixel box of a face for the backward: the pixels of its bbox,

@@ -12,14 +12,27 @@
 // planes. Output: 13 planes, (13, B, S, S) float32, in the order of
 // reference.PLANES.
 //
-// Design (simple first; tuning is later work):
-//   * one thread per pixel, 16x16 pixels per block, grid (S/16, S/16, B);
-//   * faces are tested 256 at a time in their packed (sorted) order, one
-//     per thread: the face's bbox, padded by the coverage cutoff radius,
-//     against the block's pixel box; ballots compact the live ones, order
-//     preserved, and their used slots (59, or 59 + 3 R^2 with texels) are
-//     staged through dynamic shared memory 64 faces at a time, so every
-//     thread walks only the block's live faces;
+// Design:
+//   * blocks of WX x WY = 2 x 2 warps over 16 x 8 pixels, grid (S / 16,
+//     S / 8, B); each warp owns a sub-tile of SUB_COLS = 8 columns x
+//     LANE_ROWS = 4 rows, a pixel a lane (raster_common.cuh SubTile); 64
+//     registers a thread, so that 8 blocks (32 warps) fit an SM: the
+//     per-pair chains are long (six exponentials and six IEEE divisions
+//     where a sigma covers), so warps in flight, not shared-memory loads,
+//     set the time (two or four pixels a lane, sharing each face's register
+//     copy, ran 1.6-3x slower on the H100: more registers, fewer warps,
+//     larger sub-tiles);
+//   * block cull: each thread tests FPT consecutive faces' bboxes, padded
+//     by the coverage cutoff radius, against the block's box, all FPT loads
+//     in flight at once; a warp scan and the warps' counts compact the live
+//     ids in order (two barriers per round of FPT * 128 faces);
+//   * the live faces are staged CH (fewer with texels, STAGE_BYTES) at a
+//     time, a half-warp per face row, float4 by float4, with no division;
+//     then each warp tests 32 staged faces at once, a lane each, against its
+//     sub-tile's padded box, and walks the faces that pass in order (an
+//     exact cull: a face it skips covers none of its pixels), reading each
+//     face's slots into registers with 15 LDS.128 (raster_common.cuh
+//     walk_staged, shade);
 //   * per pixel, the coverage products, running-max softmax carries and the
 //     hard winner live in registers (raster_common.cuh shade); the carries
 //     start at the background fragment (max bg_eps, sum 1, accumulator 1)
@@ -28,10 +41,15 @@
 //     faces in order, so the earliest face wins exact ties;
 //   * an excluded face never reaches an exponential, so no inf * 0 = nan.
 //
-// What bounds it on an H100: arithmetic. Each live (face, pixel) pair costs
-// ~180 fp32 operations (three exps, two divisions), while the bytes are the
-// constants read once plus 13 output planes written once. The bbox cull keeps
-// the pair count near the faces' true support.
+// What bounds it on an H100: arithmetic. Each shaded (face, pixel) pair
+// costs ~100 fp32 operations of geometry and, where a sigma covers it, ~70
+// more (six exps and six divisions at -fmad=false), while the bytes are the
+// constants read once plus 13 output planes written once. The warps' cull
+// keeps the pairs near the faces' padded boxes (1.6-1.8x the covered pairs
+// at the laptop scenes); a warp runs a pair's covered path when any of its
+// 32 pixels is covered.
+
+#include <stdint.h>
 
 #include "raster_common.cuh"
 
@@ -39,91 +57,97 @@ namespace {
 
 using namespace raster;
 
-constexpr int TILE = 16;     // block = TILE x TILE pixels
-constexpr int THREADS = TILE * TILE;
-constexpr int CH = 64;       // live faces staged in shared memory at a time
+constexpr int CH = 64;    // live faces staged at a time, at most
+constexpr int WX = 2;     // warps across a block: 16 columns
+constexpr int WY = 2;     // warps down a block: 8 rows
+constexpr int FPT = 8;    // faces each thread tests per cull round
+constexpr int MINB = 8;   // blocks an SM, the launch bound: 64 registers
+constexpr int THREADS = 32 * WX * WY;
+constexpr int BLOCK_COLS = WX * SUB_COLS, BLOCK_ROWS = WY * LANE_ROWS;
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MINB)
 raster_fwd_kernel(const float* __restrict__ consts, int F, int S, int B,
-                  int K, int tex_res, Params prm, float* __restrict__ out) {
-  extern __shared__ float sc[];  // [CH][used]
-  __shared__ int s_ids[THREADS];
-  __shared__ int s_cnt[THREADS / 32];
+                  int K, int tex_res, int ch, Params prm,
+                  float* __restrict__ out) {
+  constexpr int ROUND = FPT * THREADS;
+  extern __shared__ float4 sc4[];  // [ch][V]
+  __shared__ int s_ids[ROUND];
+  __shared__ int s_wsum[WX * WY];
 
-  const int used = used_slots(tex_res);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.z;
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  const int col = blockIdx.x * TILE + threadIdx.x;
-  const int row = blockIdx.y * TILE + threadIdx.y;
-  const bool valid = (col < S) && (row < S);
-  const float x = pixel_x(col, S, prm);
-  const float y = pixel_y(row, S, prm);
-  const float p2 = x * x + y * y;
+  const int r0 = blockIdx.y * BLOCK_ROWS, c0 = blockIdx.x * BLOCK_COLS;
+  SubTile w;
+  sub_tile(w, r0 + (warp / WX) * LANE_ROWS, c0 + (warp % WX) * SUB_COLS, S,
+           S, S, prm);
 
   // the block's pixel box, padded by the cull radius
-  const int c_lo = blockIdx.x * TILE;
-  const int c_hi = min(c_lo + TILE, S) - 1;
-  const int r_lo = blockIdx.y * TILE;
-  const int r_hi = min(r_lo + TILE, S) - 1;
-  const float bx_lo = pixel_x(c_lo, S, prm) - prm.pad;
+  const int c_hi = min(c0 + BLOCK_COLS, S) - 1;
+  const int r_hi = min(r0 + BLOCK_ROWS, S) - 1;
+  const float bx_lo = pixel_x(c0, S, prm) - prm.pad;
   const float bx_hi = pixel_x(c_hi, S, prm) + prm.pad;
-  const float by_hi = pixel_y(r_lo, S, prm) + prm.pad;
+  const float by_hi = pixel_y(r0, S, prm) + prm.pad;
   const float by_lo = pixel_y(r_hi, S, prm) - prm.pad;
 
-  Carry q = carry_init(prm);
+  const int V = staged_vecs(tex_res), K4 = K / 4;
   const float* cb = consts + (size_t)b * F * K;
+  const float4* cb4 = reinterpret_cast<const float4*>(cb);
 
-  for (int f0 = 0; f0 < F; f0 += THREADS) {
-    // --- cull: each thread tests one face's padded bbox against the block's
-    // pixel box; ballots + warp-count prefix compact the live face ids,
+  for (int f0 = 0; f0 < F; f0 += ROUND) {
+    // --- cull: FPT consecutive faces a thread; an inclusive warp scan of
+    // the live counts and the warps' totals give each live face its place,
     // order preserved
-    bool live = false;
-    const int f = f0 + tid;
-    if (f < F) {
-      const float* bb = cb + (size_t)f * K + S_BBOX;
-      live = (bb[0] <= bx_hi) && (bb[1] >= bx_lo) && (bb[2] <= by_hi) &&
-             (bb[3] >= by_lo);
-    }
-    const unsigned ballot = __ballot_sync(FULL, live);
-    const int warp = tid >> 5, lane = tid & 31;
-    if (lane == 0) s_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    int off = __popc(ballot & ((1u << lane) - 1u)), n_live = 0;
+    const int fb = f0 + tid * FPT;
+    unsigned bits = 0;
 #pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) {
-      off += (w < warp) ? s_cnt[w] : 0;
-      n_live += s_cnt[w];
+    for (int j = 0; j < FPT; ++j) {
+      if (fb + j < F) {
+        const float* bb = cb + (size_t)(fb + j) * K + S_BBOX;
+        if ((bb[0] <= bx_hi) && (bb[1] >= bx_lo) && (bb[2] <= by_hi) &&
+            (bb[3] >= by_lo))
+          bits |= 1u << j;
+      }
     }
-    if (live) s_ids[off] = f;
+    const int cnt = __popc(bits);
+    int incl = cnt;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int t = __shfl_up_sync(FULL, incl, o);
+      if (lane >= o) incl += t;
+    }
+    if (lane == 31) s_wsum[warp] = incl;
+    __syncthreads();
+    int off = incl - cnt, n_live = 0;
+#pragma unroll
+    for (int v = 0; v < WX * WY; ++v) {
+      off += (v < warp) ? s_wsum[v] : 0;
+      n_live += s_wsum[v];
+    }
+#pragma unroll
+    for (int j = 0; j < FPT; ++j)
+      if ((bits >> j) & 1u) s_ids[off++] = fb + j;
     __syncthreads();
 
-    // --- stage the live faces' constants CH at a time and walk them
-    for (int j0 = 0; j0 < n_live; j0 += CH) {
-      const int n = min(CH, n_live - j0);
-      for (int k = tid; k < n * used; k += THREADS) {
-        const int j = k / used;
-        const int sl = k - j * used;
-        sc[j * used + sl] = cb[(size_t)s_ids[j0 + j] * K + sl];
-      }
+    // --- stage the live faces ch at a time, a half-warp per row; walk
+    for (int j0 = 0; j0 < n_live; j0 += ch) {
+      const int n = min(ch, n_live - j0);
+      for (int j = tid >> 4; j < n; j += THREADS / 16)
+        stage_row(sc4 + j * V, cb4 + (size_t)s_ids[j0 + j] * K4, V, tid & 15);
       __syncthreads();
-      if (valid) {
-        for (int j = 0; j < n; ++j)
-          shade(sc + j * used, x, y, p2, prm, tex_res, q);
-      }
+      if (w.any) walk_staged(sc4, n, V, prm, tex_res, w);
       __syncthreads();
     }
   }
-
-  if (!valid) return;
-  write_planes(q, out, (size_t)B * S * S, ((size_t)b * S + row) * S + col);
+  write_sub_tile(w, out, B, S, b);
 }
 
 }  // namespace
 
 // Launches the kernel on `stream`; returns the cudaError_t of the launch
-// (0 on success; cudaErrorInvalidValue for a tex_res the kernel does not
-// take). consts: (B, F, K) float32 contiguous, device memory, K >=
-// 59 + 3 tex_res^2; out: (13, B, S, S) float32 contiguous, device memory.
+// (0 on success; cudaErrorInvalidValue for a tex_res, K or alignment the
+// kernel does not take). consts: (B, F, K) float32 contiguous, 16-byte
+// aligned device memory, K a multiple of 4 and >= 59 + 3 tex_res^2; out:
+// (13, B, S, S) float32 contiguous, device memory.
 extern "C" int raster_fused_fwd(const float* consts, int B, int F, int S,
                                 int K, int tex_res, float inv_sigma1,
                                 float inv_sigma2, float inv_gamma_d,
@@ -131,20 +155,26 @@ extern "C" int raster_fused_fwd(const float* consts, int B, int F, int S,
                                 float inv_range, float bg_eps, float z_offset,
                                 float cut1, float cut2, float pad, float inv_s,
                                 float* out, void* stream) {
-  if (tex_res < 0 || tex_res > MAX_TEX_RES || used_slots(tex_res) > K)
+  if (tex_res < 0 || tex_res > MAX_TEX_RES || K % 4 ||
+      4 * staged_vecs(tex_res) > K || ((uintptr_t)consts & 15))
     return (int)cudaErrorInvalidValue;
-  Params prm{inv_sigma1, inv_sigma2, inv_gamma_d, inv_gamma_t, near_, far_,
-             inv_range, bg_eps, z_offset, cut1, cut2, pad, inv_s};
-  const size_t smem = (size_t)CH * used_slots(tex_res) * sizeof(float);
-  if (smem > 48 * 1024) {
+  if (B == 0 || S == 0) return 0;
+  const Params prm{inv_sigma1, inv_sigma2, inv_gamma_d, inv_gamma_t, near_,
+                   far_, inv_range, bg_eps, z_offset, cut1, cut2, pad, inv_s};
+  const int row = staged_vecs(tex_res) * (int)sizeof(float4);
+  const int ch = min(CH, max(16, STAGE_BYTES / row));
+  const size_t smem = (size_t)ch * row;
+  // the static arrays (s_ids, s_wsum) count against the 48 KB default too
+  constexpr size_t STATIC = (FPT * 32 + 1) * WX * WY * sizeof(int);
+  if (smem + STATIC > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         raster_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  dim3 block(TILE, TILE);
-  dim3 grid((S + TILE - 1) / TILE, (S + TILE - 1) / TILE, B);
-  raster_fwd_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
-      consts, F, S, B, K, tex_res, prm, out);
+  const dim3 grid((S + BLOCK_COLS - 1) / BLOCK_COLS,
+                  (S + BLOCK_ROWS - 1) / BLOCK_ROWS, B);
+  raster_fwd_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+      consts, F, S, B, K, tex_res, ch, prm, out);
   return (int)cudaGetLastError();
 }

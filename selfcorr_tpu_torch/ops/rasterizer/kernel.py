@@ -13,8 +13,10 @@ The sources have a plain C interface and include no PyTorch header;
 utils/cuda_build.py compiles them with nvcc for sm_90a into
 selfcorr_tpu_torch/_build/ at first use, one nvcc per source, all at once,
 and ctypes binds the C functions. A failed build raises, and so does a
-launch the card refuses. Nothing here runs at import time, so the CPU tests
-can import the module on machines with no CUDA toolkit.
+launch the card refuses. fwd_visits is the CPU mirror of the forwards'
+culls: it counts the (face, pixel) pairs on which B1 and B1' shade.
+Nothing here runs at import time, so the CPU tests can import the module on
+machines with no CUDA toolkit.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ import os
 import torch
 
 from selfcorr_tpu_torch.ops.rasterizer import common as C
-from selfcorr_tpu_torch.ops.rasterizer.chunks import n_words, tiles_for
+from selfcorr_tpu_torch.ops.rasterizer.chunks import (n_words, tiles_for,
+                                                      visited_chunks)
 from selfcorr_tpu_torch.ops.rasterizer.reference import (BWD_GRADS,
                                                          BWD_PLANES, PLANES)
 from selfcorr_tpu_torch.utils import cuda_build
@@ -52,6 +55,16 @@ _ARGTYPES = {
 
 _lib = None  # {kernel name: bound C function}, after build()
 
+# The forwards' tiles (csrc/raster_common.cuh, raster_fwd.cu,
+# raster_fwd_chunk.cu): a warp shades a sub-tile of SUB_COLS columns x
+# LANE_ROWS rows, a pixel a lane, and skips each face whose bbox, padded by
+# the cull radius, misses the sub-tile's box; B1 first culls per block of
+# FWD_BLOCK_ROWS x FWD_BLOCK_COLS pixels.
+SUB_COLS, LANE_ROWS = 8, 4
+FWD_BLOCK_ROWS, FWD_BLOCK_COLS = 8, 16
+# the earlier B1's block cull (16 x 16 blocks), for the visited-pair count
+OLD_FWD_TILE = 16
+
 
 def build() -> dict:
     """Compile (once per process, all sources at once) and bind the
@@ -67,6 +80,83 @@ def build() -> dict:
             lib[name] = fn
         _lib = lib
     return _lib
+
+
+def _box_hits(consts, s, pad, rows, cols):
+    """(B, ceil(s / rows), ceil(s / cols), F) bool: whether each face's
+    bbox, padded by pad, meets each rows x cols pixel box (clipped to the
+    image), in the kernels' float32 arithmetic (raster_common.cuh
+    sub_tile, raster_fwd.cu's block box): a pixel's centre is
+    (2 c + 1 - S) / S, (S - 1 - 2 r) / S through the float32 reciprocal."""
+    f32 = torch.float32
+    inv_s = torch.tensor(1.0 / s, dtype=f32)
+    pad = torch.tensor(pad, dtype=f32)
+    c0 = torch.arange(0, s, cols, dtype=f32)
+    r0 = torch.arange(0, s, rows, dtype=f32)
+    c_hi = torch.clamp(c0 + cols, max=s) - 1.0
+    r_hi = torch.clamp(r0 + rows, max=s) - 1.0
+    x_lo = (2.0 * c0 + 1.0 - s) * inv_s - pad
+    x_hi = (2.0 * c_hi + 1.0 - s) * inv_s + pad
+    y_hi = ((s - 1.0) - 2.0 * r0) * inv_s + pad
+    y_lo = ((s - 1.0) - 2.0 * r_hi) * inv_s - pad
+    bb = consts[..., C.S_BBOX:C.S_BBOX + 4].float().cpu()
+    hit_x = ((bb[:, None, :, 0] <= x_hi[None, :, None])
+             & (bb[:, None, :, 1] >= x_lo[None, :, None]))   # (B, nc, F)
+    hit_y = ((bb[:, None, :, 2] <= y_hi[None, :, None])
+             & (bb[:, None, :, 3] >= y_lo[None, :, None]))   # (B, nr, F)
+    return hit_y[:, :, None, :] & hit_x[:, None, :, :]
+
+
+def _box_pixels(s, rows, cols):
+    """(ceil(s / rows), ceil(s / cols)) long: the image's pixels in each
+    rows x cols box."""
+    nr = torch.clamp(s - torch.arange(0, s, rows), max=rows)
+    nc = torch.clamp(s - torch.arange(0, s, cols), max=cols)
+    return nr[:, None] * nc[None, :]
+
+
+def fwd_visits(consts: torch.Tensor, image_size: int, sigma1: float,
+               sigma2: float, chunks=None) -> torch.Tensor:
+    """The CPU mirror of B1's (chunks=None) or B1''s (chunks = (spans,
+    masks)) cull: (B, ceil(S / LANE_ROWS), ceil(S / SUB_COLS), F) bool,
+    whether the warp of each sub-tile shades face f at its pixels. B1: the
+    face passes its block's test and its sub-tile's; B1': its chunk lies in
+    its tile's span with its bit set, and it passes its sub-tile's test."""
+    b, f, _ = consts.shape
+    s = int(image_size)
+    pad = cull_pad(sigma1, sigma2)
+    hits = _box_hits(consts, s, pad, LANE_ROWS, SUB_COLS)
+    if chunks is None:
+        block = _box_hits(consts, s, pad, FWD_BLOCK_ROWS, FWD_BLOCK_COLS)
+        up = torch.arange(hits.shape[1]) // (FWD_BLOCK_ROWS // LANE_ROWS)
+        across = torch.arange(hits.shape[2]) // (FWD_BLOCK_COLS // SUB_COLS)
+        return hits & block[:, up][:, :, across]
+    tl = tiles_for(s)
+    visit = visited_chunks(*(t.cpu() for t in chunks), s, f // C.FF)
+    # (B, S * S, n_chunks) per pixel -> per tile -> per sub-tile
+    per_tile = visit.reshape(b, s, s, -1)[:, ::tl.rows, ::tl.cols]
+    up = torch.arange(hits.shape[1]) * LANE_ROWS // tl.rows
+    across = torch.arange(hits.shape[2]) * SUB_COLS // tl.cols
+    face = per_tile[:, up][:, :, across][..., torch.arange(f) // C.FF]
+    return hits & face
+
+
+def visited_pairs(consts: torch.Tensor, image_size: int, sigma1: float,
+                  sigma2: float, chunks=None) -> int:
+    """The (face, pixel) pairs on which B1 (or, with chunks, B1') runs
+    `shade`: fwd_visits times the pixels of each sub-tile."""
+    visits = fwd_visits(consts, image_size, sigma1, sigma2, chunks)
+    pix = _box_pixels(int(image_size), LANE_ROWS, SUB_COLS)
+    return int((visits.sum(-1) * pix).sum())
+
+
+def block_cull_pairs(consts: torch.Tensor, image_size: int, sigma1: float,
+                     sigma2: float, tile: int = OLD_FWD_TILE) -> int:
+    """The pairs the earlier B1 shaded: every pixel of a tile x tile block
+    against each face whose padded bbox meets the block."""
+    s = int(image_size)
+    hits = _box_hits(consts, s, cull_pad(sigma1, sigma2), tile, tile)
+    return int((hits.sum(-1) * _box_pixels(s, tile, tile)).sum())
 
 
 def reset_launches() -> None:

@@ -9,7 +9,8 @@ headers beside it and the flags, and written through a temporary file and a
 rename, so a rebuilt source never loads a stale library and concurrent
 processes never see a half-written one. nvcc runs with --resource-usage:
 the registers, shared memory and spills of each kernel it builds are kept
-in LOGS. Nothing here runs at import time:
+in LOGS, and beside the library (<library>.log) for a later process that
+finds it built. Nothing here runs at import time:
 the CPU tests import every module on machines with no CUDA toolkit.
 """
 from __future__ import annotations
@@ -59,6 +60,9 @@ def build_all(sources, flags=CUDA_FLAGS) -> dict:
     jobs = []
     for src, path in paths.items():
         if os.path.exists(path):
+            if src not in LOGS and os.path.exists(path + ".log"):
+                with open(path + ".log") as f:
+                    LOGS[src] = f.read()
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
@@ -70,6 +74,9 @@ def build_all(sources, flags=CUDA_FLAGS) -> dict:
     for src, path, tmp, proc in jobs:
         log, _ = proc.communicate()
         if proc.returncode == 0:
+            with open(tmp + ".log", "w") as f:
+                f.write(log)
+            os.replace(tmp + ".log", path + ".log")
             os.replace(tmp, path)
             LOGS[src] = log
         else:
@@ -78,6 +85,29 @@ def build_all(sources, flags=CUDA_FLAGS) -> dict:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return paths
+
+
+def sass_opcodes(source: str, flags=CUDA_FLAGS) -> dict:
+    """{kernel (mangled name): {opcode with its modifiers: static count}}
+    in the SASS of `source`'s built library, from the toolkit's cuobjdump
+    (for example LDS against LDS.128: the shared-memory loads a kernel
+    issues)."""
+    path = build_all([source], flags)[source]
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
+    out, counts = {}, None
+    for line in sass.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            counts = out.setdefault(line[len("Function : "):], {})
+        elif counts is not None and line.startswith("/*") and "*/" in line:
+            body = line.split("*/", 1)[1].strip().rstrip(";").split()
+            if body and body[0].startswith("@"):
+                body = body[1:]
+            if body and body[0][0].isupper():
+                counts[body[0]] = counts.get(body[0], 0) + 1
+    return out
 
 
 def load(source: str) -> ctypes.CDLL:

@@ -339,3 +339,41 @@ def test_chunk_backward_kernel_matches_plain_and_repeats_bitwise(cuda,
         assert bool(((k - r).abs() <= lim).all())
     if tex_res:
         assert float(got[..., C.S_SURF:].abs().max()) > 0
+
+
+@pytest.mark.parametrize("tex_res", [0, 6])
+@pytest.mark.parametrize("b,s", [(1, 320), (2, 40), (2, 72)])
+def test_forward_kernel_sub_tiles(cuda, b, s, tex_res):
+    """B1 at the predict panels' B = 1, S = 320 and at ragged S that no
+    block divides, with and without texels: within the gates against the
+    plain version, and a second launch bit-identical."""
+    consts = surface_consts(cuda, 11 + s, b, 300, tex_res, s)
+    sg = (1e-4, 1e-3, 1e-4, 1e-2)
+    got = kernel.raster_fused_fwd_cuda(consts, s, *sg, tex_res)
+    again = kernel.raster_fused_fwd_cuda(consts, s, *sg, tex_res)
+    ref = raster_fused_fwd_plain(consts, s, *sg, tex_res)
+    torch.cuda.synchronize()
+    assert_fwd_close(got, ref)
+    assert float(got["alpha1"].max()) > 0.5
+    for n in PLANES:
+        assert torch.equal(got[n], again[n]), n
+
+
+@pytest.mark.parametrize("tex_res", [0, 6])
+@pytest.mark.parametrize("s", [72, 256, 320])
+def test_chunk_forward_equals_b1(cuda, s, tex_res):
+    """B1' on its tiles (16 x 64 at S = 256 / 320, 8 x 72 at S = 72)
+    equals B1 bit for bit on the same sorted constants, and holds the gates
+    against its plain version."""
+    consts = surface_consts(cuda, 13, 2, 600, tex_res, s)
+    sg = (1e-4, 1e-3, 1e-4, 1e-2)
+    spans, masks = api.chunk_info(consts, s, 1e-4, 1e-3)
+    got = kernel.raster_fused_fwd_chunk_cuda(consts, spans, masks, s, *sg,
+                                             tex_res)
+    b1 = kernel.raster_fused_fwd_cuda(consts, s, *sg, tex_res)
+    ref = raster_fused_fwd_chunk_plain(consts, spans, masks, s, *sg,
+                                       tex_res)
+    torch.cuda.synchronize()
+    assert_fwd_close(got, ref)
+    for n in PLANES:
+        assert torch.equal(got[n], b1[n]), n

@@ -24,13 +24,17 @@ Phases, in order; any failure exits non-zero:
               planes: every slot, and a second launch bit-identical; the
               pixels its face boxes visit and the pairs they cover
   5. B1', B2' the dense-chunk forward and backward against their plain
-              versions at the same scenes (a)-(c), B1' against B1 on the
-              same constants (whether the two are bit-identical is
-              recorded), a second B2' launch bit-identical; B1 / B1' and
-              B2 / B2' times side by side
+              versions at the same scenes (a)-(c), B1' against B1 and B2'
+              against B2 on the same constants, planes and cotangents
+              (whether each pair is bit-identical is recorded), a second B2'
+              launch bit-identical; B1 / B1' and B2 / B2' times side by
+              side, B2' beside its bound with the pixels it tests (the
+              mirror of its walk, kernel.bwd_visits) beside the covered
+              pairs
   6. texels   B1, B2, B1', B2' with surface texels at R = 6 (K = 192)
               against their plain versions, second backward launches
-              bit-identical
+              bit-identical, B1' == B1 and B2' == B2 recorded; B2' beside
+              B2 and its bound at the laptop scene
   7. B3       the DINO attention against its plain version at the trunk's
               shape (32, 6, 1025, 64) on its strided views and on contiguous
               tensors, and at ragged T on both sides of the kernel's 192-row
@@ -363,31 +367,21 @@ def raster_args(name, args):
                                               else 0)
 
 
-def visited_pixels(consts, s, sigma1, sigma2):
-    """The pixels of the faces' padded boxes (raster_common.cuh face_box,
-    in float32 as the kernel computes them), which B2 visits, and the lanes
-    that visit them in B2's 8 x 4 sub-tiles."""
-    from selfcorr_tpu_torch.ops.rasterizer import common as C
-    from selfcorr_tpu_torch.ops.rasterizer.kernel import cull_pad
-    bb = consts[..., C.S_BBOX:C.S_BBOX + 4].float()
-    pad = torch.tensor(cull_pad(sigma1, sigma2), dtype=torch.float32)
-    fs = torch.tensor(float(s))
-    xlo, xhi = bb[..., 0] - pad, bb[..., 1] + pad
-    ylo, yhi = bb[..., 2] - pad, bb[..., 3] + pad
-    ok = (xlo <= 2.0) & (xhi >= -2.0) & (ylo <= 2.0) & (yhi >= -2.0)
-    half = torch.tensor(0.5)
-    cl = torch.clamp((xlo * fs + fs - 1.0) * half, min=0.0)
-    ch = torch.clamp((xhi * fs + fs - 1.0) * half, max=float(s - 1))
-    rl = torch.clamp((fs - 1.0 - yhi * fs) * half, min=0.0)
-    rh = torch.clamp((fs - 1.0 - ylo * fs) * half, max=float(s - 1))
-    c_lo = torch.clamp(torch.floor(cl) - 1, min=0)
-    c_hi = torch.clamp(torch.ceil(ch) + 1, max=s - 1)
-    r_lo = torch.clamp(torch.floor(rl) - 1, min=0)
-    r_hi = torch.clamp(torch.ceil(rh) + 1, max=s - 1)
-    ncol = torch.where(ok, c_hi - c_lo + 1, 0).clamp(min=0)
-    nrow = torch.where(ok, r_hi - r_lo + 1, 0).clamp(min=0)
-    lanes = torch.ceil(ncol / 8) * 8 * torch.ceil(nrow / 4) * 4
-    return int((ncol * nrow).sum()), int(lanes.sum())
+def visited_pixels(consts, s, sigma1, sigma2, chunks=()):
+    """The pixels on which B2 (or, with chunks, B2') runs the cover test,
+    from the mirror of its walk (kernel.bwd_visits, one image at a time on
+    the constants' device), and the lanes of the 32-pixel steps of the walk
+    over each face's padded box, which B2 and B2' take alike."""
+    from selfcorr_tpu_torch.ops.rasterizer.kernel import bwd_visits
+    pixels = lanes = 0
+    for i in range(consts.shape[0]):
+        box = bwd_visits(consts[i:i + 1], s, sigma1, sigma2)
+        lanes += int(((box.sum(1) + 31) // 32 * 32).sum())
+        if chunks:
+            box = bwd_visits(consts[i:i + 1], s, sigma1, sigma2,
+                             tuple(t[i:i + 1] for t in chunks))
+        pixels += int(box.sum())
+    return pixels, lanes
 
 
 def raster_costs(name, *args):
@@ -422,7 +416,7 @@ def raster_costs(name, *args):
                bound_by="operations" if t_ops >= t_bytes else "bytes")
     if bwd:
         out["visited_pixels"], out["visited_lanes"] = visited_pixels(
-            consts.cpu(), s, *sg[:2])
+            consts, s, *sg[:2], chunks)
     else:
         out.update(fwd_cull(name, consts, chunks, s, sg[:2]))
     if name == "raster_fused_fwd":
@@ -585,12 +579,17 @@ def scene_cases(rng):
     return cases
 
 
-def print_b2(where, c):
-    print(f"[B2] {where}: kernel {c['ms']} ms, plain {c['plain_ms']} ms, "
-          f"bound {c['bound_ms']} ms ({c['bound_by']}; {c['ops']} operations "
-          f"over pairs {c['pairs']}; {c['bytes']} bytes); pixels visited "
-          f"{c['visited_pixels']} (lanes {c['visited_lanes']}), covered "
-          f"pairs {c['pairs']['cover']}", flush=True)
+def print_b2(where, c, tag="B2"):
+    """A backward's time beside its bound, and the pixels it tests beside
+    the covered pairs."""
+    print(f"[{tag}] {where}: kernel {c['ms']} ms, plain {c['plain_ms']} ms, "
+          f"bound {c['bound_ms']} ms ({c['bound_by']}; "
+          f"{100 * c['bound_ms'] / c['ms']:.1f}% of the bound; {c['ops']} "
+          f"operations over pairs {c['pairs']}; {c['bytes']} bytes); pixels "
+          f"tested {c['visited_pixels']} = "
+          f"{c['visited_pixels'] / max(c['pairs']['cover'], 1):.3f}x the "
+          f"{c['pairs']['cover']} covered pairs (lanes "
+          f"{c['visited_lanes']})", flush=True)
 
 
 def b2_phase(rng, dev):
@@ -627,9 +626,10 @@ def b2_phase(rng, dev):
 
 def chunk_phase(rng, dev):
     """B1' and B2' against their plain versions at the scenes (a)-(c); B1'
-    against B1 on the same sorted constants (bit-identical or not,
-    recorded); a second B2' launch bit-identical; at the timed scenes the
-    kernel times of both schedules side by side."""
+    against B1 and B2' against B2 on the same sorted constants, planes and
+    cotangents (bit-identical or not, recorded); a second B2' launch
+    bit-identical; at the timed scenes the kernel times of both schedules
+    side by side, B2' beside its bound with the pixels it tests."""
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
     from selfcorr_tpu_torch.ops.rasterizer.api import chunk_info
     from selfcorr_tpu_torch.ops.rasterizer.reference import \
@@ -647,32 +647,35 @@ def chunk_phase(rng, dev):
         bargs = (consts, *cull, planes, grads, s, *sg)
         kg, err, ok_b = hold("raster_fused_bwd_chunk", *bargs)
         again = torch.equal(kg, KR.raster_fused_bwd_chunk_cuda(*bargs))
+        b2args = (consts, planes, grads, s, *sg)
+        same_b2 = torch.equal(kg, KR.raster_fused_bwd_cuda(*b2args))
         rec = {"fwd_max_abs_err": errs, "bwd_max_abs_err": err,
                "b1_bit_identical": same_b1, "bwd_repeat_bit_identical": again,
+               "b2_bit_identical": same_b2,
                "chunks_visited": int(torch.stack(
                    [(cull[1] >> i) & 1 for i in range(32)]).sum())}
         print(f"[B1'/B2'] {name}: F={consts.shape[1]} B1' max|err| "
               + " ".join(f"{n}={e:.3g}" for n, e in errs.items())
               + f"; B1' == B1 bit for bit: {same_b1}; B2' max|err| "
-              f"{err:.3g}; B2' repeat bit-identical: {again}; "
-              f"(tile, chunk) pairs visited {rec['chunks_visited']}",
-              flush=True)
+              f"{err:.3g}; B2' repeat bit-identical: {again}; B2' == B2 bit "
+              f"for bit: {same_b2}; (tile, chunk) pairs visited "
+              f"{rec['chunks_visited']}", flush=True)
         failures += ([] if ok else [f"{name}: B1' disagrees"]) \
             + ([] if ok_b else [f"{name}: B2' disagrees"]) \
             + ([] if again else [f"{name}: a second B2' launch differs"])
         if timed:
+            c = raster_costs("raster_fused_bwd_chunk", *bargs)
             rec.update(
                 b1_chunk_ms=time_ms(lambda: KR.raster_fused_fwd_chunk_cuda(
                     consts, *cull, s, *sg)),
                 b1_ms=time_ms(lambda: KR.raster_fused_fwd_cuda(consts, s,
                                                                *sg)),
-                b2_chunk_ms=time_ms(lambda: KR.raster_fused_bwd_chunk_cuda(
-                    *bargs)),
-                b2_ms=time_ms(lambda: KR.raster_fused_bwd_cuda(
-                    consts, planes, grads, s, *sg)))
+                b2_chunk=c,
+                b2_ms=time_ms(lambda: KR.raster_fused_bwd_cuda(*b2args)))
             print(f"[B1'/B2'] {name}: B1' {rec['b1_chunk_ms']} ms vs B1 "
-                  f"{rec['b1_ms']} ms; B2' {rec['b2_chunk_ms']} ms vs B2 "
+                  f"{rec['b1_ms']} ms; B2' {c['ms']} ms vs B2 "
                   f"{rec['b2_ms']} ms", flush=True)
+            print_b2(name, c, "B2'")
         out[name] = rec
     if failures:
         fail("B1'/B2': " + "; ".join(failures))
@@ -685,16 +688,19 @@ TEX_RES = 6     # the JAX default n_tex_sample: K = 192
 def texel_phase(rng, dev):
     """B1, B2, B1', B2' with random surface texels at R = TEX_RES against
     their plain versions: the laptop prior under 8 poses at S=256 and F=21
-    at S=64; second backward launches bit-identical."""
+    at S=64; second backward launches bit-identical; B1' against B1 and B2'
+    against B2 bit for bit (recorded); at the laptop scene B2' beside B2
+    and its bound, with the pixels it tests."""
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
     from selfcorr_tpu_torch.ops.rasterizer.api import chunk_info
     from selfcorr_tpu_torch.ops.rasterizer.reference import \
         raster_fused_fwd_plain
     sg, r = SIGMAS, TEX_RES
-    cases = [("(b) laptop 8 poses B=8 S=256", *laptop_scene(rng, 8), 256),
-             ("(c) F=21 S=64", *random_scene(rng, 1, 21), 64)]
+    cases = [("(b) laptop 8 poses B=8 S=256", *laptop_scene(rng, 8), 256,
+              True),
+             ("(c) F=21 S=64", *random_scene(rng, 1, 21), 64, False)]
     out, failures = {}, []
-    for name, fv, st, ht, s in cases:
+    for name, fv, st, ht, s, timed in cases:
         surf = rng.rand(*fv.shape[:2], r * r, 3).astype(np.float32)
         consts = pack(dev, s, fv, st, ht, surf)
         cull = chunk_info(consts, s, *sg[:2])
@@ -713,14 +719,24 @@ def texel_phase(rng, dev):
                 again = torch.equal(ko, routes(kname)[0](*args))
                 rec[kname]["repeat_bit_identical"] = again
                 failures += [] if again else [f"{name}: {kname} repeat"]
-            else:
-                rec[kname]["out"] = ko
+            rec[kname]["out"] = ko
             failures += [] if ok else [f"{name}: {kname} disagrees"]
-        fwd, fwd_c = (rec[n].pop("out") for n in FWD_KERNELS)
+        fwd, fwd_c, bwd, bwd_c = (rec[n].pop("out")
+                                  for n in FWD_KERNELS + BWD_KERNELS)
         rec["b1_chunk_b1_bit_identical"] = all(
             torch.equal(fwd[n], fwd_c[n]) for n in fwd)
+        rec["b2_chunk_b2_bit_identical"] = torch.equal(bwd, bwd_c)
         print(f"[texels] {name} R={r} K={consts.shape[2]}: " + "; ".join(
             f"{n} {v}" for n, v in rec.items()), flush=True)
+        if timed:
+            c = raster_costs("raster_fused_bwd_chunk", consts, *cull, planes,
+                             grads, s, *sg, r)
+            rec["b2_chunk"] = c
+            rec["b2_ms"] = time_ms(lambda: KR.raster_fused_bwd_cuda(
+                consts, planes, grads, s, *sg, r))
+            print(f"[texels] {name}: B2' {c['ms']} ms vs B2 {rec['b2_ms']} "
+                  f"ms", flush=True)
+            print_b2(f"{name} R={r}", c, "B2'")
         out[name] = rec
     if failures:
         fail("texels: " + "; ".join(failures))
@@ -1207,8 +1223,9 @@ def report_main_path(path, captured):
               f"{c['ms']} ms, plain {c['plain_ms']} ms, bound {c['bound_ms']}"
               f" ms ({c['bound_by']}), library {c.get('library_ms')} ms, "
               f"max|err| {c['max_abs_err']:.3g}", flush=True)
-        if name == "raster_fused_bwd":
-            print_b2(f"the {path} path's inputs", c)
+        if name in BWD_KERNELS:
+            print_b2(f"the {path} path's inputs", c,
+                     "B2" if name == "raster_fused_bwd" else "B2'")
         elif name in FWD_KERNELS:
             print_fwd("B1" if name == "raster_fused_fwd" else "B1'",
                       f"the {path} path's inputs", c)

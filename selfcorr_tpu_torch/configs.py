@@ -6,7 +6,10 @@ either package accepts parses here too; fields that only steer the JAX
 package (use_pallas, dino_flash, dino_pad_once, steps_per_dispatch, ...) are
 parsed and ignored. dino_attn_bf16 selects the trunk's bf16 attention
 (kernel B3 on the card). `device` is the port's own field: entry points run
-on "cuda" unless the caller asks for "cpu".
+on "cuda" unless the caller asks for "cpu". Flags that ask for work the port
+does not do yet (several devices or processes, the profiler trace, batches
+made on the device, the panels drawn with cv2) raise at the entry points
+(refuse_unported) rather than run something else.
 """
 from __future__ import annotations
 
@@ -151,6 +154,39 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+# the panels the JAX package draws with cv2 (selfcorr_tpu/utils/vis.py)
+CV2_PANELS = ("bbox", "match", "imatch", "conf", "mesh", "gt")
+_MULTI_PROCESS = ("multihost", "coordinator_address", "num_processes",
+                  "process_id")
+
+
+def refuse_unported(cfg: Config, train: bool) -> None:
+    """Raise NotImplementedError if cfg asks the training loop (train) or
+    the evaluation for what the port does not do yet: more than one device
+    or process; in training the profiler trace and batches made on the
+    device; in evaluation the panels drawn with cv2."""
+    default = Config()
+    asked = []
+    if cfg.num_devices > 1:
+        asked.append(f"--num_devices {cfg.num_devices} (data parallel over "
+                     f"several GPUs)")
+    asked += [f"--{n} (several processes)" for n in _MULTI_PROCESS
+              if getattr(cfg, n) != getattr(default, n)]
+    if train:
+        if cfg.profile_steps > 0:
+            asked.append("--profile_steps (a profiler trace of the loop)")
+        if cfg.synthetic_on_device:
+            asked.append("--synthetic_on_device (batches made on the "
+                         "device)")
+    else:
+        asked += [f"--visualize_{n} (a panel drawn with cv2)"
+                  for n in CV2_PANELS if getattr(cfg, f"visualize_{n}")]
+    if asked:
+        raise NotImplementedError(
+            f"{'; '.join(asked)}: not ported yet, this comes in a later "
+            f"slice; the port runs one process on one device")
 
 
 _TUPLE_FIELDS = {"init_scale": 3, "rotation_offset": 6, "base_rot": 9}

@@ -6,7 +6,9 @@ With --vis_pred the fitted mesh is re-rendered with the original frame's
 intrinsics into full-frame depth / texture / mask panels (the fused
 rasterizer: the CUDA kernel on a CUDA device). A failure to read the
 original frame skips its panels; a rasterizer build or launch error
-propagates.
+propagates. The panels the JAX package draws with cv2
+(--visualize_{bbox,match,imatch,conf,mesh,gt}) are not ported: asking for
+one raises, as do several devices or processes (configs.refuse_unported).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from selfcorr_tpu_torch.configs import Config
+from selfcorr_tpu_torch.configs import Config, refuse_unported
 from selfcorr_tpu_torch.data.loader import BATCH_KEYS, TestLoader
 from selfcorr_tpu_torch.eval.metrics import NocsAccumulator
 from selfcorr_tpu_torch.eval.pose_fit import fit_poses
@@ -56,6 +58,7 @@ class Tester:
             raise NotImplementedError(
                 "--model_path: checkpoint import comes in a later slice; "
                 "without it the weights are initialized from --seed")
+        refuse_unported(cfg, train=False)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
@@ -139,16 +142,13 @@ class Tester:
     def _debug_panels(self, batch, pred, fit, i, orig) -> dict:
         """Full-frame depth / texture / mask panels: the FITTED mesh
         re-rendered with the original frame's intrinsics (per-axis NDC),
-        rendered at s = h and resized to (h, w). Returns name -> uint8
-        (h, w, 3) RGB."""
+        rendered at s = h and resized to (h, w): those that a
+        --visualize_{depth,tex,mask} flag asks for, or all three when none
+        does (the other visualize flags raise at __init__). Returns name ->
+        uint8 (h, w, 3) RGB."""
         cfg = self.cfg
-        any_specific = any(getattr(cfg, f"visualize_{n}") for n in (
-            "bbox", "match", "imatch", "conf", "depth", "mask", "tex",
-            "mesh", "gt"))
         want = [n for n in ("depth", "tex", "mask")
-                if (not any_specific) or getattr(cfg, f"visualize_{n}")]
-        if not want:
-            return {}
+                if getattr(cfg, f"visualize_{n}")] or ["depth", "tex", "mask"]
         h, w = orig["img"].shape[:2]
         dev = self.device
         verts = fit["verts"][i][None]                       # (1, V, 3) posed

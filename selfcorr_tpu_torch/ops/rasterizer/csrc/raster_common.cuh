@@ -3,10 +3,11 @@
 // layout (../common.py), the parameters, the dense-chunk tile geometry, the
 // forward's per-pair update
 // `shade` and its walk over staged faces `walk_staged` (the warp's sub-tile
-// cull), the backward's per-pair gradient `pair_grad`, the surface
-// texel pick, and a deterministic warp reduction of texel gradients.
-// `pair_grad` is `pair_geom` (the cover test) followed by `pair_chain`, so
-// that B2 can compact the covered pixels between the two.
+// cull), the backward's per-pair cover test `pair_geom` and gradient chains
+// `pair_chain`, the surface texel pick, a deterministic warp reduction of
+// texel gradients, and the one backward kernel `raster_bwd_kernel` that B2
+// and B2' instantiate: it compacts the covered pixels between the cover
+// test and the chains.
 //
 // The per-pair arithmetic is the plain PyTorch versions' (../reference.py),
 // operation for operation; the sources are built with -fmad=false so that
@@ -377,26 +378,8 @@ __device__ __forceinline__ bool pair_geom(const float* c, float x, float y,
 }
 
 // Where pair_chain adds the first minimizing edge's 7 terms (SEG x, y, 1;
-// E2; PC x, y, 1): the slot registers acc[0..20] (RegEdges), or a lane's
-// column of 21 slots in shared memory, 32 floats apart (ColumnEdges), which
-// frees 21 registers. Either adds the same terms in the same order.
-struct RegEdges {
-  float* acc;
-  __device__ __forceinline__ void add(int e_min, const float (&t)[7]) const {
-#pragma unroll
-    for (int e = 0; e < 3; ++e) {
-      if (e_min == e) {
-        acc[3 * e + 0] += t[0];
-        acc[3 * e + 1] += t[1];
-        acc[3 * e + 2] += t[2];
-        acc[9 + e] += t[3];
-        acc[12 + 3 * e + 0] += t[4];
-        acc[12 + 3 * e + 1] += t[5];
-        acc[12 + 3 * e + 2] += t[6];
-      }
-    }
-  }
-};
+// E2; PC x, y, 1): a lane's column of its 21 edge slots in shared memory,
+// 32 floats apart, which frees 21 registers.
 struct ColumnEdges {
   float* col;  // slot j of this lane at col[32 j]
   __device__ __forceinline__ void add(int e_min, const float (&t)[7]) const {
@@ -421,14 +404,14 @@ struct ColumnEdges {
 // With texels, the pair's texture cotangent dcol goes to one texel,
 // returned in *texel for the caller to add. pix: the 16 planes
 // (raster_bwd.cu), plane: their stride, o: the pixel's offset.
-template <class Edges>
 __device__ __forceinline__ void pair_chain(const float* c, float x, float y,
                                           const PairGeom& g,
                                           const float* __restrict__ pix,
                                           size_t plane, size_t o,
                                           const Params& prm, int tex_res,
-                                          const Edges& edges, float* acc,
-                                          int* texel, float* dcol) {
+                                          const ColumnEdges& edges,
+                                          float* acc, int* texel,
+                                          float* dcol) {
   // --- this pixel's residuals and cotangents, loaded first so that their
   // latency hides behind the arithmetic below
   const float p1_tot = 1.0f - pix[0 * plane + o];
@@ -550,20 +533,6 @@ __device__ __forceinline__ void pair_chain(const float* c, float x, float y,
   }
 }
 
-// One (face, pixel) pair of the backward: pair_geom, then pair_chain where
-// either sigma covers the pair.
-__device__ __forceinline__ void pair_grad(const float* c, float x, float y,
-                                         const float* __restrict__ pix,
-                                         size_t plane, size_t o,
-                                         const Params& prm, int tex_res,
-                                         float* acc, int* texel,
-                                         float* dcol) {
-  PairGeom g;
-  if (pair_geom(c, x, y, prm, g))
-    pair_chain(c, x, y, g, pix, plane, o, prm, tex_res, RegEdges{acc}, acc,
-               texel, dcol);
-}
-
 // The sum of v over the 32 lanes of a warp, in a fixed order (xor
 // butterfly); every lane gets the same value.
 __device__ __forceinline__ float warp_sum(float v) {
@@ -604,6 +573,261 @@ __device__ __forceinline__ float grad_slot(int slot, const float* red,
   if (tex_res > 0 && slot >= S_SURF && slot < used_slots(tex_res))
     return tex[slot - S_SURF];
   return 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// The backwards' schedule: one kernel, which B2 (raster_bwd.cu) instantiates
+// with CHUNKED = false and B2' (raster_bwd_chunk.cu) with CHUNKED = true.
+//   * One warp per (face, batch element), BWD_WARPS faces to a block, grid
+//     (ceil(F / BWD_WARPS), B); each warp stages its face's used slots in
+//     shared memory and never waits on another warp.
+//   * The warp walks the pixels of the face's padded box (face_box: a pixel
+//     outside it is farther than the cutoff from the face), 32 at a time in
+//     row-major order; a lane steps its (row, column) by 32 pixels with no
+//     integer divide, and its integers become floats by bit arithmetic.
+//   * B2' tests a pixel only where the dense-chunk cull visits the face's
+//     chunk ci = f / 16 at the pixel's tile: ci lies in the tile's span and
+//     its mask bit is set. Before the walk the warp stages those bits for
+//     the tiles its box touches (one bit a tile, in shared memory); a pixel
+//     finds its tile by shifts (tile rows are 8 or 16 pixels, columns 64 or
+//     128, or one column of S < 128: chunks.tiles_for). A warp whose box
+//     lies in visited tiles only (TileMap.partial false) skips the test.
+//   * Compact first, then compute: each lane runs only the pair's geometry
+//     up to the cover test (pair_geom); the covered pixels go, in pixel
+//     order (__ballot_sync and __popc), into the warp's queue in shared
+//     memory with their geometry; whenever the queue holds 32, every lane
+//     takes one and runs the chains (pair_chain), with no lane idle but in
+//     the face's last, partial batch. A batch is the next 32 entries of the
+//     queue whenever it is drained, so the sums depend only on the queue:
+//     where no covered pair lies in a tile that B2' skips, B2' adds what B2
+//     adds in B2's order, and the two agree bit for bit.
+//   * The planes come image-major, (B, 16, S, S): one pixel's 16 loads lie
+//     S^2 floats apart from one address; at SF = 256 (an instance of its
+//     own) those offsets are immediates, with no address arithmetic a load.
+//   * 36 slots per lane: the 21 edge slots in a column of shared memory
+//     (ColumnEdges), the other 15 in registers, so that 80 registers hold a
+//     thread and 6 blocks fit an SM; texel slots (108 at R = 6) in a row of
+//     shared memory per warp, each batch's texels added by a fixed-order
+//     warp reduction (warp_texel_add).
+//   * A fixed-order xor butterfly reduces each slot over the lanes and the
+//     warp writes its face's whole row. There is no atomic, so a second
+//     launch is bit-identical.
+constexpr int BWD_WARPS = 4;  // faces per block, one warp each
+constexpr int BWD_THREADS = 32 * BWD_WARPS;
+constexpr int QCAP = 64;         // queue entries per warp (< 32 + 32)
+constexpr int MAX_S_BWD = 2048;  // image sizes the backward takes
+// the most tiles of chunks.tiles_for at S <= MAX_S_BWD: 256 x 16 of 8 x 128
+// pixels, or 128 x 32 of 16 x 64
+constexpr int MAX_TILES = 4096;
+
+// B2': where a warp finds the visited bit of a pixel's tile in its staged
+// bits: bit (row >> rs) * ntc + (col >> cs) - off. `partial`: some tile of
+// the face's box is not visited; where every tile is (nearly always: the
+// chunk's bbox holds each of its faces'), the walk skips the bit test.
+struct TileMap {
+  int rs, cs, ntc, off;
+  bool partial;
+};
+
+// A warp's queue of covered pixels with their centres and geometry
+// (pair_geom).
+struct Queue {
+  int pix[QCAP];    // the pixel's offset in its (S, S) plane
+  int flags[QCAP];  // e_min | inside << 2
+  float x[QCAP], y[QCAP], w0[QCAP], w1[QCAP], w2[QCAP], dis2[QCAP],
+      sp[QCAP];
+};
+
+// (float)i for 0 <= i < 2^23, exact, without the quarter-rate conversion
+// unit: i in the mantissa of 2^23, minus 2^23
+__device__ __forceinline__ float small_float(int i) {
+  return __int_as_float(0x4B000000 | i) - 8388608.0f;
+}
+
+// SF > 0: the kernel for image size SF, whose plane offsets (multiples of
+// SF^2 floats) become immediates of the loads; SF = 0: any S. CHUNKED: B2',
+// which reads spans, masks and tl (chunks.compute_chunk_info); B2 passes
+// none. 6 blocks an SM: 80 registers a thread.
+template <int SF, bool CHUNKED>
+__global__ void __launch_bounds__(BWD_THREADS, 6)
+raster_bwd_kernel(const float* __restrict__ consts,
+                  const int* __restrict__ spans,
+                  const int* __restrict__ masks,
+                  const float* __restrict__ pix, int F, int S_, int K,
+                  int tex_res, Tiles tl, Params prm,
+                  float* __restrict__ grad) {
+  __shared__ float sc[BWD_WARPS][MAX_USED];
+  __shared__ float red[BWD_WARPS][NACC];
+  __shared__ float tacc[BWD_WARPS][MAX_USED - N_SLOTS];
+  __shared__ Queue queues[BWD_WARPS];
+  // each lane's 21 edge slots (ColumnEdges)
+  __shared__ float eacc[BWD_WARPS][21 * 32];
+  // B2': the visited bits of the warp's chunk, a bit a tile of its box,
+  // and how a pixel finds its bit (kept here, not in registers, which the
+  // walk has none to spare of)
+  __shared__ unsigned vbits[BWD_WARPS][CHUNKED ? MAX_TILES / 32 : 1];
+  __shared__ TileMap tmaps[BWD_WARPS];
+
+  const int S = SF > 0 ? SF : S_;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int f = blockIdx.x * BWD_WARPS + warp;
+  const int b = blockIdx.y;
+  if (f >= F) return;  // a whole warp; nothing below syncs the block
+  const int used = used_slots(tex_res);
+  const int n_tex = used - N_SLOTS;
+  const float* cf = consts + ((size_t)b * F + f) * K;
+  float* c = sc[warp];
+  for (int k = lane; k < used; k += 32) c[k] = cf[k];
+  for (int k = lane; k < n_tex; k += 32) tacc[warp][k] = 0.0f;
+  const ColumnEdges edges{eacc[warp] + lane};
+#pragma unroll
+  for (int j = 0; j < 21; ++j) edges.col[32 * j] = 0.0f;
+  __syncwarp();
+
+  float acc[NACC];  // slots 21..35 (0..20 live in eacc)
+#pragma unroll
+  for (int j = 21; j < NACC; ++j) acc[j] = 0.0f;
+
+  const PixBox bx = face_box(c, S, prm);
+  const int ncol = bx.c_hi - bx.c_lo + 1;
+  const int npix =
+      (ncol > 0 && bx.r_hi >= bx.r_lo) ? ncol * (bx.r_hi - bx.r_lo + 1) : 0;
+  const float inv_ncol = npix > 0 ? 1.0f / (float)ncol : 0.0f;
+
+  // B2': the box's tiles (tr0.., tc0.., ntc a row) and their visited bits
+  if constexpr (CHUNKED) {
+    if (npix > 0) {  // warp-uniform
+      const int rs = tl.rows == 16 ? 4 : 3;
+      const int cs = tl.cols == 64 ? 6 : 7;  // 128, or S < 128: col >> 7 = 0
+      const int tr0 = bx.r_lo >> rs, tc0 = bx.c_lo >> cs;
+      const int ntc = (bx.c_hi >> cs) - tc0 + 1;
+      const int nt = ((bx.r_hi >> rs) - tr0 + 1) * ntc;
+      const int ci = f / FF;
+      const int n_tiles = tl.n_rows * tl.n_cols;
+      const int* span = spans + (size_t)b * n_tiles * 2;
+      const int* words = masks + (size_t)b * n_tiles * tl.n_words;
+      bool partial = false;  // warp-uniform
+      for (int i0 = 0; i0 < nt; i0 += 32) {  // warp-uniform
+        const int i = i0 + lane;
+        bool v = false;
+        if (i < nt) {
+          const int t = (tr0 + i / ntc) * tl.n_cols + tc0 + i % ntc;
+          v = ci >= span[2 * t] && ci < span[2 * t + 1] &&
+              ((unsigned)words[t * tl.n_words + (ci >> 5)] >> (ci & 31)) & 1u;
+        }
+        const unsigned m = __ballot_sync(FULL, v);
+        partial |= m != __ballot_sync(FULL, i < nt);
+        if (lane == 0) vbits[warp][i0 >> 5] = m;
+      }
+      if (lane == 0)
+        tmaps[warp] = TileMap{rs, cs, ntc, tr0 * ntc + tc0, partial};
+      __syncwarp();
+    }
+  }
+
+  // image b's 16 planes, S^2 floats apart
+  const size_t plane = (size_t)S * S;
+  const float* img = pix + (size_t)b * 16 * plane;
+  Queue& q = queues[warp];
+  int head = 0, count = 0;  // warp-uniform
+
+  // every lane below n takes queue entry head + lane and runs its chains;
+  // all 32 lanes call it together
+  auto drain = [&](int n) {
+    int t = -1;
+    float dcol[3];
+    if (lane < n) {
+      const int e = (head + lane) & (QCAP - 1);
+      const PairGeom g{q.w0[e], q.w1[e], q.w2[e], q.dis2[e], q.sp[e],
+                       q.flags[e] & 3, (q.flags[e] >> 2) != 0};
+      pair_chain(c, q.x[e], q.y[e], g, img, plane, q.pix[e], prm, tex_res,
+                 edges, acc, &t, dcol);
+    }
+    if (tex_res > 0) warp_texel_add(tacc[warp], t, dcol, lane);
+    head += n;
+    count -= n;
+  };
+
+  // lane's pixel (r, cc) of the box, row-major; it moves on by 32 pixels a
+  // step
+  int r = (int)((small_float(lane) + 0.5f) * inv_ncol);
+  int cc = lane - r * ncol;
+  if (cc >= ncol) {
+    ++r;
+    cc -= ncol;
+  }
+  const float fs = (float)S;
+  for (int base = 0; base < npix; base += 32) {  // warp-uniform
+    const int row = bx.r_lo + r, col = bx.c_lo + cc;
+    bool test = base + lane < npix;
+    if constexpr (CHUNKED) {
+      const TileMap& tm = tmaps[warp];
+      if (tm.partial && test) {
+        const int i = (row >> tm.rs) * tm.ntc + (col >> tm.cs) - tm.off;
+        test = (vbits[warp][i >> 5] >> (i & 31)) & 1u;
+      }
+    }
+    // common.pixel_grid, as pixel_x / pixel_y compute it
+    const float x = (2.0f * small_float(col) + 1.0f - fs) * prm.inv_s;
+    const float y = ((fs - 1.0f) - 2.0f * small_float(row)) * prm.inv_s;
+    PairGeom g;
+    const bool cov = test && pair_geom(c, x, y, prm, g);
+    const unsigned m = __ballot_sync(FULL, cov);
+    if (cov) {
+      const int e =
+          (head + count + __popc(m & ((1u << lane) - 1u))) & (QCAP - 1);
+      q.pix[e] = row * S + col;
+      q.flags[e] = g.e_min | ((int)g.inside << 2);
+      q.x[e] = x;
+      q.y[e] = y;
+      q.w0[e] = g.w0;
+      q.w1[e] = g.w1;
+      q.w2[e] = g.w2;
+      q.dis2[e] = g.dis2;
+      q.sp[e] = g.sp;
+    }
+    count += __popc(m);
+    cc += 32;
+    while (cc >= ncol) {
+      ++r;
+      cc -= ncol;
+    }
+    __syncwarp();
+    if (count >= 32) {
+      drain(32);
+      __syncwarp();
+    }
+  }
+  if (count > 0) drain(count);
+
+  // --- fixed-order butterfly, then the warp writes its face's row
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) {
+    const float v = warp_sum(j < 21 ? edges.col[32 * j] : acc[j]);
+    if (lane == 0) red[warp][j] = v;
+  }
+  __syncwarp();
+  float* gr = grad + ((size_t)b * F + f) * K;
+  for (int slot = lane; slot < K; slot += 32)
+    gr[slot] = grad_slot(slot, red[warp], tacc[warp], tex_res);
+}
+
+// Launches raster_bwd_kernel<., CHUNKED> for B faces x F on `stream`, the
+// S = 256 instance at S = 256; returns cudaGetLastError().
+template <bool CHUNKED>
+inline int launch_bwd(const float* consts, const int* spans,
+                      const int* masks, const float* pix, int B, int F,
+                      int S, int K, int tex_res, Tiles tl, Params prm,
+                      float* grad, void* stream) {
+  dim3 grid((F + BWD_WARPS - 1) / BWD_WARPS, B);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (S == 256)  // the training renders
+    raster_bwd_kernel<256, CHUNKED><<<grid, BWD_THREADS, 0, st>>>(
+        consts, spans, masks, pix, F, S, K, tex_res, tl, prm, grad);
+  else
+    raster_bwd_kernel<0, CHUNKED><<<grid, BWD_THREADS, 0, st>>>(
+        consts, spans, masks, pix, F, S, K, tex_res, tl, prm, grad);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace raster

@@ -14,7 +14,9 @@ utils/cuda_build.py compiles them with nvcc for sm_90a into
 selfcorr_tpu_torch/_build/ at first use, one nvcc per source, all at once,
 and ctypes binds the C functions. A failed build raises, and so does a
 launch the card refuses. fwd_visits is the CPU mirror of the forwards'
-culls: it counts the (face, pixel) pairs on which B1 and B1' shade.
+culls: it counts the (face, pixel) pairs on which B1 and B1' shade;
+bwd_visits the mirror of the backwards' walk: the pixels on which B2 and B2'
+run the cover test.
 Nothing here runs at import time, so the CPU tests can import the module on
 machines with no CUDA toolkit.
 """
@@ -159,6 +161,51 @@ def block_cull_pairs(consts: torch.Tensor, image_size: int, sigma1: float,
     return int((hits.sum(-1) * _box_pixels(s, tile, tile)).sum())
 
 
+def _face_boxes(consts, s, pad):
+    """Each face's padded pixel box as raster_common.cuh face_box computes
+    it in float32: (c_lo, c_hi, r_lo, r_hi), each (B, F) long, empty
+    (c_hi < c_lo) for a face off screen, with NaN bounds, or padding."""
+    f32, dev = torch.float32, consts.device
+    bb = consts[..., C.S_BBOX:C.S_BBOX + 4].float()
+    pad = torch.tensor(pad, dtype=f32, device=dev)
+    fs = torch.tensor(float(s), dtype=f32, device=dev)
+    xlo, xhi = bb[..., 0] - pad, bb[..., 1] + pad
+    ylo, yhi = bb[..., 2] - pad, bb[..., 3] + pad
+    ok = (xlo <= 2.0) & (xhi >= -2.0) & (ylo <= 2.0) & (yhi >= -2.0)
+    cl = torch.clamp((xlo * fs + fs - 1.0) * 0.5, min=0.0)
+    ch = torch.clamp((xhi * fs + fs - 1.0) * 0.5, max=s - 1.0)
+    rl = torch.clamp((fs - 1.0 - yhi * fs) * 0.5, min=0.0)
+    rh = torch.clamp((fs - 1.0 - ylo * fs) * 0.5, max=s - 1.0)
+
+    def lo(v):
+        return torch.where(ok, (torch.floor(v).long() - 1).clamp(min=0), 0)
+
+    def hi(v):
+        return torch.where(ok, (torch.ceil(v).long() + 1).clamp(max=s - 1),
+                           -1)
+    return lo(cl), hi(ch), lo(rl), hi(rh)
+
+
+def bwd_visits(consts: torch.Tensor, image_size: int, sigma1: float,
+               sigma2: float, chunks=None) -> torch.Tensor:
+    """The CPU mirror of B2's (chunks=None) or B2''s (chunks = (spans,
+    masks)) walk: (B, S * S, F) bool, row-major pixels, whether the kernel
+    runs the cover test on each (pixel, face) pair. B2: the pixel lies in
+    the face's padded box; B2': also, the cull visits the face's chunk at
+    the pixel's tile. Computed on the constants' device."""
+    b, f, _ = consts.shape
+    s = int(image_size)
+    c_lo, c_hi, r_lo, r_hi = _face_boxes(consts, s, cull_pad(sigma1, sigma2))
+    i = torch.arange(s, device=consts.device)[None, :, None]
+    rows = (i >= r_lo[:, None]) & (i <= r_hi[:, None])          # (B, S, F)
+    cols = (i >= c_lo[:, None]) & (i <= c_hi[:, None])
+    visits = (rows[:, :, None] & cols[:, None]).reshape(b, s * s, f)
+    if chunks is not None:
+        visit = visited_chunks(*chunks, s, f // C.FF)        # (B, S*S, NC)
+        visits &= visit[..., torch.arange(f, device=visit.device) // C.FF]
+    return visits
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -208,16 +255,15 @@ def _check_chunks(consts, spans, masks, s):
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _pix(consts, planes, grads, s, dim=0):
-    """The 16 (B, S, S) planes of the backward, stacked along `dim` (0: (16,
-    B, S, S) for B2', 1: image-major (B, 16, S, S) for B2): BWD_PLANES,
-    then the cotangents of BWD_GRADS."""
+def _pix(consts, planes, grads, s):
+    """The 16 (B, S, S) planes of the backward, image-major (B, 16, S, S)
+    as B2 and B2' read them: BWD_PLANES, then the cotangents of
+    BWD_GRADS."""
     b = consts.shape[0]
     pix = torch.stack([planes[n] for n in BWD_PLANES]
                       + [grads[n] for n in BWD_GRADS],
-                      dim=dim).float().contiguous()
-    if pix.device != consts.device or pix.shape[2:] != (s, s) or \
-            pix.shape[:2] != ((16, b) if dim == 0 else (b, 16)):
+                      dim=1).float().contiguous()
+    if pix.device != consts.device or pix.shape != (b, 16, s, s):
         raise ValueError(f"planes and cotangents must be ({b}, {s}, {s}) "
                          f"on {consts.device}, got 16 stacked as "
                          f"{tuple(pix.shape)} on {pix.device}")
@@ -266,7 +312,7 @@ def raster_fused_bwd_cuda(consts: torch.Tensor, planes: dict, grads: dict,
     _check_consts(consts, "raster_fused_bwd_cuda", tex_res)
     b, f, k = consts.shape
     s = int(image_size)
-    pix = _pix(consts, planes, grads, s, dim=1)
+    pix = _pix(consts, planes, grads, s)
     consts = consts.contiguous()
     grad = torch.empty_like(consts)
     _launch("raster_fused_bwd", consts, consts.data_ptr(), pix.data_ptr(),
@@ -311,9 +357,10 @@ def raster_fused_bwd_chunk_cuda(consts: torch.Tensor, spans: torch.Tensor,
                                 sigma2: float, gamma_d: float,
                                 gamma_t: float,
                                 tex_res: int = 0) -> torch.Tensor:
-    """d/d(consts) of the dense-chunk schedule, computed by B2'.
-    Deterministic: one warp per face, a fixed-order reduction, no
-    atomics."""
+    """d/d(consts) of the dense-chunk schedule, computed by B2': B2's
+    kernel, which tests only the pixels of tiles whose cull visits the
+    face's chunk. Deterministic: one warp per face, a fixed-order
+    reduction, no atomics."""
     _check_consts(consts, "raster_fused_bwd_chunk_cuda", tex_res)
     b, f, k = consts.shape
     s = int(image_size)

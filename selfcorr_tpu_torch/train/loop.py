@@ -11,7 +11,9 @@ JAX loop's fold_in(PRNGKey(seed + 1), step). Batches come from a thread
 loader, packed to compact dtypes (--compact_transfer) and uploaded from
 pinned memory. Every batch_log_interval steps the metrics are fetched in
 one transfer and printed; last_logged_loss keeps the total loss of the last
-log. Checkpoints, resume and image logging are not ported yet.
+log. Checkpoints, resume and image logging are not ported yet: the Trainer
+says so at its start, and flags that ask for other work the port does not do
+yet raise (configs.refuse_unported).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from selfcorr_tpu_torch.configs import Config
+from selfcorr_tpu_torch.configs import Config, refuse_unported
 from selfcorr_tpu_torch.data.loader import BATCH_KEYS, TrainLoader
 from selfcorr_tpu_torch.models.meshnet import build_mesh_constants, draw_step
 from selfcorr_tpu_torch.train.step import (compress_batch_host, init_state,
@@ -44,6 +46,10 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 
 class Trainer:
     def __init__(self, cfg: Config):
+        refuse_unported(cfg, train=True)
+        print(f"[train] this port writes no checkpoint (--save_freq "
+              f"{cfg.save_freq}) and logs no images (--vis_freq "
+              f"{cfg.vis_freq}, --logger {cfg.logger}) yet", flush=True)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         set_fp32_precision()

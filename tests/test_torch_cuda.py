@@ -377,3 +377,58 @@ def test_chunk_forward_equals_b1(cuda, s, tex_res):
     assert_fwd_close(got, ref)
     for n in PLANES:
         assert torch.equal(got[n], b1[n]), n
+
+
+def bwd_inputs(cuda, seed, b, nf, tex_res, s):
+    """Sorted constants, their chunk cull, the plain forward's planes and
+    seeded cotangents at image size s."""
+    sg = (1e-4, 1e-3, 1e-4, 1e-2)
+    consts = surface_consts(cuda, seed, b, nf, tex_res, s)
+    spans, masks = api.chunk_info(consts, s, 1e-4, 1e-3)
+    planes = raster_fused_fwd_plain(consts, s, *sg, tex_res)
+    g = torch.Generator().manual_seed(seed)
+    grads = {n: torch.randn(b, s, s, generator=g).to(cuda)
+             for n in BWD_GRADS}
+    return consts, spans, masks, planes, grads, sg
+
+
+@pytest.mark.parametrize("tex_res", [0, 6])
+@pytest.mark.parametrize("s", [72, 256, 320])
+def test_chunk_backward_equals_b2(cuda, s, tex_res):
+    """B2' runs B2's kernel over the chunk cull, which keeps every covered
+    pair of B2's boxes here: its queue is B2's, so on the same sorted
+    constants, planes and cotangents the two agree bit for bit."""
+    consts, spans, masks, planes, grads, sg = bwd_inputs(cuda, 13, 2, 600,
+                                                         tex_res, s)
+    got = kernel.raster_fused_bwd_chunk_cuda(consts, spans, masks, planes,
+                                             grads, s, *sg, tex_res)
+    b2 = kernel.raster_fused_bwd_cuda(consts, planes, grads, s, *sg,
+                                      tex_res)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and float(got.abs().max()) > 0
+    assert torch.equal(got, b2)
+
+
+@pytest.mark.parametrize("tex_res", [0, 6])
+def test_chunk_backward_honours_cleared_bits(cuda, tex_res):
+    """With every other tile's mask words cleared, B2' drops those tiles'
+    pairs as the chunk plain version does on the same masks (every slot
+    within 1e-4 of the slot's largest), and differs from B2."""
+    s = 64
+    consts, spans, masks, planes, grads, sg = bwd_inputs(cuda, 17, 2, 300,
+                                                         tex_res, s)
+    n_tiles = spans.shape[1] // 2
+    cleared = masks.reshape(2, n_tiles, -1).clone()
+    cleared[:, ::2] = 0
+    cleared = cleared.reshape(masks.shape)
+    got = kernel.raster_fused_bwd_chunk_cuda(consts, spans, cleared, planes,
+                                             grads, s, *sg, tex_res)
+    ref = raster_fused_bwd_chunk_plain(consts, spans, cleared, planes, grads,
+                                       s, *sg, tex_res)
+    b2 = kernel.raster_fused_bwd_cuda(consts, planes, grads, s, *sg,
+                                      tex_res)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    lim = 1e-4 * ref.abs().amax(dim=(0, 1))
+    assert bool(((got - ref).abs() <= lim).all())
+    assert not torch.allclose(got, b2)

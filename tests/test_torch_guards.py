@@ -4,6 +4,7 @@ it was not given.
 The import check is static (an AST scan): the test interpreter imports JAX
 at start-up, so a runtime sys.modules check could not tell."""
 import ast
+import glob
 import os
 import subprocess
 import sys
@@ -109,3 +110,62 @@ def test_kernel_is_not_built_at_import():
             "assert '-gencode=arch=compute_90a,code=sm_90a' in "
             "kernel.CUDA_FLAGS\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True)
+
+
+TINY = ["--dataset_name", "synthetic", "--img_size", "32", "--corr_h", "8",
+        "--corr_w", "8", "--batch_size", "2", "--repeat", "2",
+        "--pretrain_k", "8", "--n_corr_feat", "16", "--codedim", "8",
+        "--symmetry_npts", "256", "--device", "cpu"]
+_TRAIN, _EVAL = "Trainer", "Tester"
+REFUSED = ([("num_devices", 2, e) for e in (_TRAIN, _EVAL)]
+           + [("multihost", True, e) for e in (_TRAIN, _EVAL)]
+           + [("coordinator_address", "localhost:1234", _TRAIN),
+              ("num_processes", 2, _TRAIN), ("process_id", 0, _EVAL),
+              ("profile_steps", 5, _TRAIN),
+              ("synthetic_on_device", True, _TRAIN)]
+           + [(f"visualize_{n}", True, _EVAL)
+              for n in ("bbox", "match", "imatch", "conf", "mesh", "gt")])
+
+
+def entry(name):
+    from selfcorr_tpu_torch.eval.tester import Tester
+    from selfcorr_tpu_torch.train.loop import Trainer
+    return {_TRAIN: Trainer, _EVAL: Tester}[name]
+
+
+@pytest.mark.parametrize("flag,value,cls", REFUSED)
+def test_unported_flag_is_a_later_slice(flag, value, cls, tmp_path):
+    """A flag asking for work the port does not do yet raises at the entry
+    point that would do it, before anything is built."""
+    from selfcorr_tpu_torch.configs import parse_args
+    cfg = parse_args(["--flagfile", LAPTOP, *TINY,
+                      "--checkpoint_dir", str(tmp_path)]).replace(
+        **{flag: value})
+    with pytest.raises(NotImplementedError, match="later slice"):
+        entry(cls)(cfg)
+
+
+@pytest.mark.parametrize("flagfile", sorted(
+    os.path.relpath(p, ROOT)
+    for p in glob.glob(os.path.join(ROOT, "config", "*", "*.txt"))))
+def test_config_flag_files_ask_for_nothing_unported(flagfile):
+    from selfcorr_tpu_torch.configs import parse_args, refuse_unported
+    cfg = parse_args(["--flagfile", os.path.join(ROOT, flagfile)])
+    refuse_unported(cfg, train=True)
+    refuse_unported(cfg, train=False)
+
+
+def test_defaults_and_ported_panels_still_construct(tmp_path, capsys):
+    """The defaults with --vis_pred --visualize_{mask,tex,depth} (the
+    predict path's panels) build a Trainer and a Tester on the CPU; the
+    Trainer says that it writes no checkpoint and logs no images."""
+    from selfcorr_tpu_torch.configs import parse_args
+    cfg = parse_args(["--flagfile", LAPTOP, *TINY, "--vis_pred",
+                      "--visualize_mask", "--visualize_tex",
+                      "--visualize_depth", "--checkpoint_dir",
+                      str(tmp_path)])
+    trainer = entry(_TRAIN)(cfg)
+    assert trainer.state.step == 0
+    assert "writes no checkpoint" in capsys.readouterr().out
+    tester = entry(_EVAL)(cfg.replace(train=False))
+    assert tester.device.type == "cpu"

@@ -5,6 +5,11 @@ the sub-tile. A pair that a kernel skips must cover nothing, so the mirror
 is held against the plain forward's own cover test (con1 or con2 of
 reference._pair_geometry) at every (face, pixel) pair; and the kernels'
 tile constants, parsed from their sources, against the mirror's.
+
+The mirror of the backwards' walk (kernel.bwd_visits): B2 runs the cover
+test on every pixel of each face's padded box, B2' only on those of tiles
+whose cull visits the face's chunk. Held against the pairs to which the
+plain backwards may give a contribution, and B2' against B2.
 """
 import os
 import re
@@ -14,7 +19,8 @@ import pytest
 import torch
 
 from selfcorr_tpu_torch.ops.rasterizer import api, common as C, kernel
-from selfcorr_tpu_torch.ops.rasterizer.chunks import tiles_for
+from selfcorr_tpu_torch.ops.rasterizer.chunks import (tiles_for,
+                                                      visited_chunks)
 from selfcorr_tpu_torch.ops.rasterizer.reference import _pair_geometry
 
 SIGMA1, SIGMA2 = 1e-4, 1e-3
@@ -167,6 +173,66 @@ def test_b1_chunk_visits_b1s_pairs(s):
     assert int((b1 & ~b1c).sum()) <= int(b1.sum()) // 100
 
 
+def live_pairs(consts, s, chunks=None):
+    """(B, S * S, F) bool: the pairs to which the plain backward (with
+    chunks, raster_fused_bwd_chunk_plain) may give a nonzero contribution:
+    either sigma covers them, under the chunk gate."""
+    gate = None
+    if chunks is not None:
+        f = consts.shape[1]
+        gate = visited_chunks(*chunks, s, f // C.FF)[..., torch.arange(f)
+                                                      // C.FF]
+    xp, yp = C.pixel_grid(s)
+    px, py = xp[None, :, None], yp[None, :, None]
+    g = _pair_geometry(consts, px, py, px * px + py * py, SIGMA1, SIGMA2,
+                       gate)
+    return g["contrib1"] | g["contrib2"]
+
+
+@pytest.mark.parametrize("s,surf_res", [(40, 0), (256, 0), (320, 0),
+                                        (64, 6)])
+def test_b2_chunk_tests_b2s_pixels_and_keeps_live_pairs(s, surf_res):
+    """B2' runs B2's walk and tests a pixel only where the cull visits the
+    face's chunk: every pair the chunk plain backward may count lies on a
+    pixel B2' tests, B2' tests no pixel B2 does not, and the covered pixels
+    it queues are exactly B2's (nothing here is culled by rounding)."""
+    fv, tex, surf = scene(9, 2 if s < 256 else 1, 40, surf_res=surf_res)
+    consts = pack(fv, tex, s, surf)
+    chunks = api.chunk_info(consts, s, SIGMA1, SIGMA2)
+    b2 = kernel.bwd_visits(consts, s, SIGMA1, SIGMA2)
+    b2c = kernel.bwd_visits(consts, s, SIGMA1, SIGMA2, chunks=chunks)
+    live = live_pairs(consts, s, chunks)
+    live_b2 = live_pairs(consts, s)
+    assert b2.shape == b2c.shape == live.shape
+    assert live.any()
+    assert not (live & ~b2c).any()
+    assert not (b2c & ~b2).any()
+    assert not (live_b2 & ~b2).any()
+    assert torch.equal(live_b2 & b2c, live_b2 & b2)
+    assert torch.equal(live, live_b2)
+
+
+def test_b2_chunk_skips_cleared_tiles():
+    """With every mask bit of some tiles cleared, B2' tests no pixel of
+    those tiles, and the pairs it drops are exactly the ones the chunk
+    plain backward drops there."""
+    s = 64
+    fv, tex, _ = scene(10, 1, 60)
+    consts = pack(fv, tex, s)
+    spans, masks = api.chunk_info(consts, s, SIGMA1, SIGMA2)
+    tl = tiles_for(s)
+    cleared = masks.reshape(1, tl.count, -1).clone()
+    cleared[:, ::2] = 0                       # every other tile
+    chunks = (spans, cleared.reshape(masks.shape))
+    b2c = kernel.bwd_visits(consts, s, SIGMA1, SIGMA2, chunks=chunks)
+    tile = torch.arange(s)[:, None] // tl.rows * tl.n_cols \
+        + torch.arange(s)[None, :] // tl.cols
+    off = (tile % 2 == 0).reshape(-1)
+    assert b2c.any() and not b2c[:, off].any()
+    live = live_pairs(consts, s, chunks)
+    assert torch.equal(live, live_pairs(consts, s) & b2c)
+
+
 def constant(src, name):
     m = re.search(rf"constexpr (?:int|long long) {name} = ([^;]+);", src)
     assert m, name
@@ -202,3 +268,20 @@ def test_chunk_tiles_hold_whole_sub_tiles(s):
         src = f.read()
     assert "tile_rows != 2 * LANE_ROWS && tile_rows != 4 * LANE_ROWS" in src
     assert tl.rows in (2 * kernel.LANE_ROWS, 4 * kernel.LANE_ROWS)
+
+
+def test_chunk_tiles_take_b2_chunk_shifts():
+    """B2' finds a pixel's tile by shifts and stages at most MAX_TILES bits
+    a face: at every S it takes (MAX_S_BWD), tiles are 8 or 16 rows and 64
+    or 128 columns, or one column of S < 128 (which a shift by 7 finds),
+    and there are at most MAX_TILES of them."""
+    with open(os.path.join(CSRC, "raster_common.cuh")) as f:
+        src = f.read()
+    max_s, max_tiles = constant(src, "MAX_S_BWD"), constant(src, "MAX_TILES")
+    for s in range(1, max_s + 1):
+        tl = tiles_for(s)
+        assert tl.rows in (8, 16), s
+        assert tl.cols in (64, 128) or (tl.cols == s < 128), s
+        assert tl.count <= max_tiles, s
+    assert "cs = tl.cols == 64 ? 6 : 7;" in src
+    assert "rs = tl.rows == 16 ? 4 : 3;" in src

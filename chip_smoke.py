@@ -57,7 +57,25 @@ Phases, in order; any failure exits non-zero:
               with the kernels and one with the plain versions patched in
               here, from one state, batch and set of draws, the DINO features
               computed once for both
- 10. report   every kernel held against its plain version at each training
+ 10. ckpt     checkpoint, resume and imports, at the compact path's width:
+              (a) the entry point trains 2 steps saving each; a fresh Trainer
+              over the same run directory resumes at step 2 and equals the
+              saved state bit for bit on the card; its next step equals the
+              first Trainer's third step (same batch and draws) bit for bit
+              where two runs of that step from one state do, else within
+              their difference (both under PyTorch's deterministic
+              algorithms; the default algorithms' difference is printed);
+              the checkpoint's bytes, save and restore times (median of 3);
+              (b) a torchvision-named resnet18 and a DINO ViT-S/8 at the
+              released shapes (grid 28, 12 blocks), made from the seed, go
+              in through --resnet_init_path / --dino_init_path: the backbone
+              and trunk hold the files' values (pos_embed resized to grid
+              32), and one step is finite with B1, B2 and 9 B3 launched;
+              (c) the predict entry point with --model_path <run>/ckpt: its
+              model is the saved one bit for bit, its NOCS metrics finite,
+              its panels launch B1. Every run directory starts empty, and
+              the checkpoints and weight files are removed at the end
+ 11. report   every kernel held against its plain version at each training
               path's inputs (B1' and B2' also at the surface path's, texels
               and all); one JSON line per the kernel table, then the result
               line
@@ -103,6 +121,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1016,7 +1035,7 @@ def train_phase(path: str):
     from selfcorr_tpu_torch.train import loop
     steps, extra, compact, raster = TRAIN_PATHS[path]
     args = TRAIN_ARGS + ["--total_iters", str(steps), *extra,
-                         "--checkpoint_dir", OUT, "--name", path]
+                         "--checkpoint_dir", OUT, "--name", fresh_run(path)]
     with schedule(compact), contextlib.ExitStack() as stack:
         caps = {n: stack.enter_context(Capture(KR, f"{n}_cuda"))
                 for n in raster}
@@ -1028,8 +1047,10 @@ def train_phase(path: str):
         torch.cuda.synchronize()
         launches = read_launches()
     wall = time.time() - t0
+    drop_checkpoints()
     print(f"[{path}] loop.main {steps} steps, wall {wall:.2f} s (cold: "
-          f"data, first launches); kernel launches {launches}", flush=True)
+          f"data, first launches, the final checkpoint); kernel launches "
+          f"{launches}", flush=True)
     want = {n: steps if n in raster else 0 for n in launches}
     want["dino_flash_attn"] = ATTN_PER_STEP * steps
     if launches != want:
@@ -1045,6 +1066,25 @@ def train_phase(path: str):
     print(f"[{path}] logged total_loss: "
           + " ".join(f"{v['total_loss']:.8f}" for _, v in logged))
     return trainer, launches, {n: c.calls[0] for n, c in caps.items()}
+
+
+def fresh_run(name: str) -> str:
+    """An empty run directory OUT/name (the Trainer resumes from any
+    checkpoint it finds there); returns name."""
+    shutil.rmtree(os.path.join(OUT, name), ignore_errors=True)
+    return name
+
+
+def drop_checkpoints():
+    """Remove every checkpoint directory and weight file under OUT, so that
+    none outlives the phase that read it."""
+    for d, dirs, files in os.walk(OUT):
+        if "ckpt" in dirs:
+            shutil.rmtree(os.path.join(d, "ckpt"))
+            dirs.remove("ckpt")
+        for f in files:
+            if f.endswith(".pth"):
+                os.remove(os.path.join(d, f))
 
 
 def train_batch(trainer):
@@ -1190,6 +1230,273 @@ def step_kernels_vs_plain(state, batch, draws, cfg, path="train"):
             "norms_max_rel": norms[worst["norms"]],
             "grads_max_rel": grad[worst["grad"]],
             "updates_max_of_lr": upd[worst["upd"]], "noise_leaves": noise}
+
+
+# ---------------------------------------------------------------------------
+# checkpoint, resume and imports
+# ---------------------------------------------------------------------------
+
+def state_tensors(state) -> dict:
+    """A copy of every tensor of a train state by name (model, trunk, each
+    AdamW moment and step count) and TrainState.step."""
+    out = {f"model.{k}": v for k, v in state.model.state_dict().items()}
+    out.update({f"dino.{k}": v for k, v in state.dino.state_dict().items()})
+    for pid, st in state.optimizer.adamw.state_dict()["state"].items():
+        out.update({f"adamw.{pid}.{k}": v for k, v in st.items()})
+    out = {k: v.clone() for k, v in out.items()}
+    out["step"] = torch.tensor(state.step)
+    return out
+
+
+def max_diff(x: dict, y: dict) -> float:
+    return max(float((x[k].double() - y[k].double()).abs().max()) for k in x)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (cuDNN's too) inside the block;
+    an op that has none warns and runs as it would."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
+
+
+def stepped(state, batch, draws, cfg) -> dict:
+    """One train step from a copy of `state`: the copy's tensors and the
+    step's metrics."""
+    from selfcorr_tpu_torch.train.step import train_step
+    st = copy.deepcopy(state)
+    m = train_step(st, batch, draws, cfg)
+    torch.cuda.synchronize()
+    return {**state_tensors(st),
+            **{f"metric.{k}": v.reshape(1) for k, v in m.items()}}
+
+
+def resume_check(card: str) -> dict:
+    """(a): train 2 steps through the entry point saving each, resume in a
+    fresh Trainer, compare; the checkpoint's bytes, save and restore
+    times."""
+    import importlib.util
+    from selfcorr_tpu_torch.models.meshnet import draw_step
+    from selfcorr_tpu_torch.train import loop
+    from selfcorr_tpu_torch.utils import checkpoint as ckpt
+    args = TRAIN_ARGS + ["--total_iters", "2", "--save_freq", "1",
+                         "--checkpoint_dir", OUT, "--name",
+                         fresh_run("resume")]
+    print("[ckpt] installed: " + ", ".join(
+        f"{m} {importlib.util.find_spec(m) is not None}"
+        for m in ("tensorboard", "tensorflow")), flush=True)
+    reset_launches()
+    first = loop.main(["train"] + args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {"raster_fused_fwd": 2, "raster_fused_bwd": 2,
+            "raster_fused_fwd_chunk": 0, "raster_fused_bwd_chunk": 0,
+            "dino_flash_attn": 2 * ATTN_PER_STEP}
+    if launches != want:
+        fail(f"resume run: launches {launches}, expected {want}")
+    steps = sorted(os.listdir(first.ckpt_dir))
+    if steps != ["1", "2"]:
+        fail(f"--save_freq 1 over 2 steps wrote checkpoints {steps}")
+    nbytes = os.path.getsize(ckpt.checkpoint_file(first.ckpt_dir, 2))
+    saved = state_tensors(first.state)
+
+    second = loop.Trainer(first.cfg)
+    got = state_tensors(second.state)
+    bad = [k for k in saved if got[k].device != saved[k].device
+           or not torch.equal(got[k], saved[k])]
+    print(f"[ckpt] the fresh Trainer resumed at step {second.state.step}: "
+          f"{len(saved)} tensors (model, trunk, AdamW moments and steps, "
+          f"step), {len(bad)} differ from the saved state", flush=True)
+    if second.state.step != 2 or bad:
+        fail(f"the restored state differs from the saved one: {bad[:10]}")
+
+    cfg = first.cfg
+    batch, _ = train_batch(first)
+    draws = draw_step(loop.step_generator(cfg.seed, 2), cfg,
+                      batch["img"].shape[0])
+    noise_default = max_diff(stepped(first.state, batch, draws, cfg),
+                             stepped(first.state, batch, draws, cfg))
+    with deterministic():
+        noise = max_diff(stepped(first.state, batch, draws, cfg),
+                         stepped(first.state, batch, draws, cfg))
+        straight = stepped(first.state, batch, draws, cfg)
+        resumed = stepped(second.state, batch, draws, cfg)
+    err = max_diff(resumed, straight)
+    print(f"[ckpt] step 3, resumed vs straight: max|diff| {err:.3g} over "
+          f"every parameter, buffer, moment and metric; two runs of that "
+          f"step from one state differ by {noise:.3g} under the "
+          f"deterministic algorithms, {noise_default:.3g} under the default "
+          f"ones", flush=True)
+    if not (err == 0.0 if noise == 0.0 else err <= noise):
+        fail(f"the step after the resume is {err:.3g} from the straight "
+             f"run's, beyond the step's own noise {noise:.3g}")
+
+    tdir = os.path.join(OUT, "resume", "ckpt", "timing")
+    save_s, restore_s = [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ckpt.save_state(tdir, first.state, 100 + i)
+        save_s.append(time.time() - t0)
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ckpt.restore_state(tdir, second.state, 100 + i)
+        torch.cuda.synchronize()
+        restore_s.append(time.time() - t0)
+    save_ms = statistics.median(save_s) * 1e3
+    restore_ms = statistics.median(restore_s) * 1e3
+    print(f"[ckpt] checkpoint {nbytes} bytes; save (state_dict, torch.save, "
+          f"fsync, rename) median {save_ms:.1f} ms of "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in save_s)}; restore "
+          f"(torch.load of a file just written, load_state_dict on the card) "
+          f"median {restore_ms:.1f} ms of "
+          f"{', '.join(f'{t * 1e3:.1f}' for t in restore_s)} on {card}",
+          flush=True)
+    return {"first": first, "launches": launches, "bytes": nbytes,
+            "save_ms": save_ms, "restore_ms": restore_ms,
+            "save_ms_all": [t * 1e3 for t in save_s],
+            "restore_ms_all": [t * 1e3 for t in restore_s],
+            "resume_max_diff": err, "step_noise": noise,
+            "step_noise_default": noise_default}
+
+
+def released_files(rng, model, dino):
+    """A torchvision-named resnet18 state dict with its fc head, and a DINO
+    ViT-S/8 state dict at the released shapes (pos_embed (1, 785, 384), 12
+    blocks, the final norm), of seeded weights, on the CPU."""
+    def draw(shape, name):
+        if name.endswith("num_batches_tracked"):
+            return torch.tensor(0)
+        if name.endswith(("running_var", "norm1.weight", "norm2.weight")):
+            return torch.tensor(rng.uniform(0.5, 1.5, shape),
+                                dtype=torch.float32)
+        return torch.tensor(rng.standard_normal(shape) * 0.02,
+                            dtype=torch.float32)
+    resnet = {k: draw(v.shape, k) for k, v in
+              model.encoder.backbone.resnet.state_dict().items()}
+    resnet["fc.weight"] = draw((1000, 512), "fc.weight")
+    resnet["fc.bias"] = draw((1000,), "fc.bias")
+    shapes = {k: v.shape for k, v in dino.state_dict().items()}
+    for i in (10, 11):
+        shapes.update({k.replace("blocks.0.", f"blocks.{i}."): v
+                       for k, v in shapes.items()
+                       if k.startswith("blocks.0.")})
+    shapes.update({"pos_embed": (1, 785, 384), "norm.weight": (384,),
+                   "norm.bias": (384,)})
+    return resnet, {k: draw(v, k) for k, v in shapes.items()}
+
+
+def import_check(first) -> dict:
+    """(b): the released files' layout, drawn from the run's seed, through
+    --resnet_init_path and --dino_init_path, then one train step through
+    the loop."""
+    import torch.nn.functional as F
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.train import loop
+    resnet, vit = released_files(np.random.RandomState(first.cfg.seed),
+                                 first.state.model, first.state.dino)
+    os.makedirs(os.path.join(OUT, fresh_run("imports")))
+    paths = [os.path.join(OUT, "imports", n)
+             for n in ("resnet18.pth", "dino_vits8.pth")]
+    torch.save(resnet, paths[0])
+    torch.save(vit, paths[1])
+    cfg = parse_args(TRAIN_ARGS + [
+        "--total_iters", "1", "--checkpoint_dir", OUT, "--name", "imports",
+        "--resnet_init_path", paths[0], "--dino_init_path", paths[1]])
+    trainer = loop.Trainer(cfg)
+    got_r = trainer.state.model.encoder.backbone.resnet.state_dict()
+    bad = [k for k, v in got_r.items() if not k.endswith(
+        "num_batches_tracked") and not torch.equal(v.cpu(), resnet[k])]
+    got_d = trainer.state.dino.state_dict()
+    pos, g = vit["pos_embed"], cfg.img_size // 8
+    grid = F.interpolate(
+        pos[0, 1:].reshape(28, 28, 384).permute(2, 0, 1)[None],
+        size=(g, g), mode="bicubic")[0]
+    want_pos = torch.cat([pos[:, :1], grid.permute(1, 2, 0).reshape(
+        1, g * g, 384)], 1)
+    bad += [k for k, v in got_d.items() if not torch.equal(
+        v.cpu(), want_pos if k == "pos_embed" else vit[k])]
+    print(f"[imports] backbone ({len(got_r)} tensors) and trunk "
+          f"({len(got_d)}; pos_embed {tuple(got_d['pos_embed'].shape)} from "
+          f"the file's {tuple(pos.shape)}) hold the files' values: "
+          f"{len(bad)} differ", flush=True)
+    if bad:
+        fail(f"imported weights differ from the files: {bad[:10]}")
+    reset_launches()
+    trainer.train()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    vals = trainer.logged[-1][1] if trainer.logged else {}
+    print(f"[imports] one step from the imported weights: total_loss "
+          f"{vals.get('total_loss')}, bad_grad {vals.get('bad_grad')}; "
+          f"kernel launches {launches}", flush=True)
+    want = {"raster_fused_fwd": 1, "raster_fused_bwd": 1,
+            "raster_fused_fwd_chunk": 0, "raster_fused_bwd_chunk": 0,
+            "dino_flash_attn": ATTN_PER_STEP}
+    if (launches != want or not vals or vals["bad_grad"] != 0.0
+            or not all(math.isfinite(v) for v in vals.values())):
+        fail(f"the step from imported weights: launches {launches} "
+             f"(expected {want}), metrics {vals}")
+    return {"launches": launches, "metrics": vals}
+
+
+def predict_from_checkpoint(first) -> dict:
+    """(c): the predict entry point with --model_path <run>/ckpt."""
+    from selfcorr_tpu_torch import predict
+    from selfcorr_tpu_torch.eval import tester as TS
+    from selfcorr_tpu_torch.utils import checkpoint as ckpt
+    want = ckpt.restore_raw(first.ckpt_dir)["model"]
+    made = []
+    init = TS.Tester.__init__
+
+    def keep(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+    TS.Tester.__init__ = keep
+    try:
+        reset_launches()
+        results = predict.main(["predict"] + SLICE_ARGS + [
+            "--checkpoint_dir", OUT, "--name", fresh_run("predict_ckpt"),
+            "--model_path", first.ckpt_dir])
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        TS.Tester.__init__ = init
+    got = made[0].model.state_dict()
+    bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+    keys = ("iou@25", "iou@50", "5deg2cm", "5deg5cm", "10deg2cm", "10deg5cm")
+    print(f"[predict_ckpt] --model_path {first.ckpt_dir}: {len(bad)} of "
+          f"{len(want)} model tensors differ from the checkpoint's; "
+          + " ".join(f"{k} {results.get(k)}" for k in keys)
+          + f"; kernel launches {launches}", flush=True)
+    if bad or sorted(got) != sorted(want):
+        fail(f"the predict path's model is not the checkpoint's: {bad[:10]}")
+    if not all(k in results and math.isfinite(results[k]) for k in keys):
+        fail(f"NOCS metrics from the checkpoint missing or not finite: "
+             f"{results}")
+    if launches["raster_fused_fwd"] == 0:
+        fail("predict from the checkpoint never launched raster_fused_fwd")
+    return {"launches": launches, "metrics": {k: results[k] for k in keys}}
+
+
+def checkpoint_phase(card: str) -> dict:
+    try:
+        res = resume_check(card)
+        first = res.pop("first")
+        res["imports"] = import_check(first)
+        res["predict"] = predict_from_checkpoint(first)
+    finally:
+        drop_checkpoints()
+    return res
 
 
 def with_chunks(captured):
@@ -1352,6 +1659,9 @@ def main() -> int:
         f"{p} {ms:.2f} ms = {ips:.1f} imgs/s" for p, (ms, ips, _)
         in steps.items()) + f" on {smi}", flush=True)
 
+    phase("checkpoint, resume and imports")
+    ckpt_res = checkpoint_phase(smi)
+
     phase("report")
     # B1' and B2' with texels at the surface path's inputs too
     captured["train_surface"] = with_chunks(captured["train_surface"])
@@ -1368,7 +1678,8 @@ def main() -> int:
                "train_step_ms": {p: s[0] for p, s in steps.items()},
                "train_imgs_per_s": {p: s[1] for p, s in steps.items()},
                "train_profile": {p: s[2] for p, s in steps.items()},
-               "train_step_parity": parity, "train_paths": main_costs}
+               "train_step_parity": parity, "train_paths": main_costs,
+               "checkpoint": ckpt_res}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     rows = []

@@ -1,6 +1,8 @@
 """Evaluation driver (counterpart of selfcorr_tpu/eval/tester.py), single
 device: per batch the eval forward and the whole-batch RANSAC pose fit run
-on the device; the exact 3D IoU / deg-cm metrics run on the host.
+on the device; the exact 3D IoU / deg-cm metrics run on the host. The
+weights come from --model_path (a port checkpoint or a reference .pth),
+else from --seed; the run's flags go to checkpoint_dir/name/config-test.txt.
 
 With --vis_pred the fitted mesh is re-rendered with the original frame's
 intrinsics into full-frame depth / texture / mask panels (the fused
@@ -28,8 +30,11 @@ from selfcorr_tpu_torch.ops import geometry as G
 from selfcorr_tpu_torch.ops.image_ops import jitter_factors
 from selfcorr_tpu_torch.ops.rasterizer import render_fused
 from selfcorr_tpu_torch.ops.rasterizer.common import EYE_OFFSET
+from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils.device import resolve_device
+from selfcorr_tpu_torch.utils.logging import write_config_snapshot
 from selfcorr_tpu_torch.utils.png import to_u8, write_png
+from selfcorr_tpu_torch.utils.weight_convert import load_reference_ckpt
 
 
 def make_test_dataset(cfg: Config):
@@ -41,31 +46,41 @@ def make_test_dataset(cfg: Config):
         f"the Wild6D / NOCS / CUB readers come in a later slice")
 
 
-def init_model(cfg: Config, constants, device) -> MeshNet:
-    """MeshNet with weights initialized from cfg.seed (on the CPU, so the
-    weights do not depend on the device), in eval mode on `device`."""
+def init_model(cfg: Config, constants) -> MeshNet:
+    """MeshNet with weights initialized from cfg.seed, on the CPU (so the
+    weights do not depend on the device)."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
-        model = MeshNet(cfg, constants)
-    return model.to(device).eval()
+        return MeshNet(cfg, constants)
+
+
+def load_model(model: MeshNet, path: str) -> None:
+    """--model_path into `model` (selfcorr_tpu/eval/tester.py:60-65): a
+    path ending in .pth is a reference pred_net_*.pth; any other is a port
+    checkpoint (a checkpoint directory, its latest step, or a step
+    directory), of which the model and its BatchNorm buffers are loaded,
+    not the optimizer. A missing path raises FileNotFoundError."""
+    if path.endswith(".pth"):
+        load_reference_ckpt(path, model)
+    else:
+        model.load_state_dict(ckpt.restore_raw(path)["model"])
 
 
 class Tester:
     __test__ = False  # not a pytest class
 
     def __init__(self, cfg: Config, model: MeshNet | None = None):
-        if cfg.model_path:
-            raise NotImplementedError(
-                "--model_path: checkpoint import comes in a later slice; "
-                "without it the weights are initialized from --seed")
         refuse_unported(cfg, train=False)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
-        os.makedirs(self.run_dir, exist_ok=True)
+        write_config_snapshot(self.run_dir, cfg, "config-test.txt")
         self.constants = build_mesh_constants(cfg)
-        self.model = (model.to(self.device).eval() if model is not None
-                      else init_model(cfg, self.constants, self.device))
+        if model is None:
+            model = init_model(cfg, self.constants)
+        if cfg.model_path:
+            load_model(model, cfg.model_path)
+        self.model = model.to(self.device).eval()
         self.base_rot = torch.as_tensor(self.constants.base_rot,
                                         device=self.device)
         self.generator = torch.Generator().manual_seed(cfg.seed + 123)

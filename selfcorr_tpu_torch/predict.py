@@ -2,11 +2,13 @@
 
   python -m selfcorr_tpu_torch.predict --flagfile config/wild6d/laptop.txt \
       --dataset_name synthetic --eval --eval_nocs --batch_size 16 \
-      --repeat 1 --dframe_eval 1 [--vis_pred] [--device cpu]
+      --repeat 1 --dframe_eval 1 [--vis_pred] [--device cpu] \
+      [--model_path log/exp/ckpt | --model_path pred_net_20000.pth]
 
-Runs on CUDA unless --device cpu is given; a missing GPU is an error. With
-no --model_path the weights are initialized from --seed; checkpoint import
-comes in a later slice.
+Runs on CUDA unless --device cpu is given; a missing GPU is an error.
+--model_path takes a port checkpoint (a run's ckpt directory, its latest
+step, or one step's directory) or a reference pred_net_*.pth; without it
+the weights are initialized from --seed.
 """
 from __future__ import annotations
 

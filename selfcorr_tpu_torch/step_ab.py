@@ -14,18 +14,24 @@ times `--reps` warm train_step calls on one uploaded batch, each ending in
 torch.cuda.synchronize(). Prints the card's name and power limit, one JSON
 line per run and, last, all runs as one JSON object. Give parent and change
 as parent, change, change, parent.
+
+Run i trains in chiprun_out/step_ab/run<i>, emptied before it starts (the
+Trainer resumes from any checkpoint there); the checkpoint the run writes is
+removed after it.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 
 _RUN = r"""
 import json, math, os, statistics, sys, time
-root, chunk, reps = sys.argv[1], sys.argv[2] == "1", int(sys.argv[3])
+root, chunk, reps, out = (sys.argv[1], sys.argv[2] == "1",
+                          int(sys.argv[3]), sys.argv[4])
 sys.path.insert(0, root)
 os.chdir(root)
 import torch
@@ -38,7 +44,6 @@ if chunk:
     if not hasattr(api, "COMPACT"):
         raise SystemExit(f"{root} has no dense-chunk schedule")
     api.COMPACT = False
-out = os.path.join(os.environ["STEP_AB_OUT"], "run")
 trainer = loop.main(["train", "--flagfile", "config/wild6d/laptop.txt",
                      "--dataset_name", "synthetic", "--total_iters", "1",
                      "--batch_log_interval", "1", "--checkpoint_dir", out,
@@ -74,15 +79,18 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    env = dict(os.environ, STEP_AB_OUT=os.path.abspath(
-        os.path.join("chiprun_out", "step_ab")))
     results = []
     for i, run in enumerate(args.runs):
         root, _, sched = run.partition(":")
+        out = os.path.abspath(os.path.join("chiprun_out", "step_ab",
+                                           f"run{i}"))
+        shutil.rmtree(out, ignore_errors=True)
         proc = subprocess.run(
             [sys.executable, "-c", _RUN, os.path.abspath(root),
-             "1" if sched == "chunk" else "0", str(args.reps)],
-            capture_output=True, text=True, env=env)
+             "1" if sched == "chunk" else "0", str(args.reps), out],
+            capture_output=True, text=True)
+        shutil.rmtree(os.path.join(out, "step_ab", "ckpt"),
+                      ignore_errors=True)
         line = [ln for ln in proc.stdout.splitlines()
                 if ln.startswith("STEP_AB ")]
         if proc.returncode != 0 or not line:

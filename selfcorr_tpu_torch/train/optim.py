@@ -105,6 +105,20 @@ class Optimizer:
             group["lr"] = lrs[g]
         self.adamw.step()
 
+    def state_dict(self) -> dict:
+        """The five groups' names, in order, and AdamW's state: each
+        parameter's moments and step count. The learning rates are not
+        state: step(count) derives them from the train state's step."""
+        return {"groups": list(self.names), "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Load a state_dict() of an Optimizer over the same groups;
+        raises ValueError if its groups differ (another cfg)."""
+        if list(sd["groups"]) != self.names:
+            raise ValueError(f"checkpoint optimizer groups {sd['groups']} "
+                             f"differ from this model's {self.names}")
+        self.adamw.load_state_dict(sd["adamw"])
+
 
 def _group_norm(params, device) -> torch.Tensor:
     """Global norm of the gradients of `params` (0 for an empty group, as

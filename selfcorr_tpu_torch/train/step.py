@@ -21,6 +21,8 @@ from selfcorr_tpu_torch.models.meshnet import (DeviceConstants, MeshConstants,
                                                forward_train)
 from selfcorr_tpu_torch.models.vit import DinoViTS8
 from selfcorr_tpu_torch.train.optim import Optimizer, clip_and_guard
+from selfcorr_tpu_torch.utils.weight_convert import (load_pretrained_init,
+                                                     load_warm_start)
 
 
 @dataclass
@@ -36,14 +38,11 @@ def init_state(cfg: Config, constants: MeshConstants, device,
                model: MeshNet | None = None,
                dino: DinoViTS8 | None = None) -> TrainState:
     """Model and DINO trunk initialized from cfg.seed on the CPU (so the
-    weights do not depend on the device), or the ones given; moved to
-    `device`; the optimizer over the model's five groups."""
-    for flag in ("resnet_init_path", "dino_init_path", "warm_start_path"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"--{flag}: pretrained and warm-start imports come in a "
-                f"later slice; without them the weights are initialized "
-                f"from --seed")
+    weights do not depend on the device), or the ones given; then, as the
+    JAX package's init_state does (selfcorr_tpu/train/step.py:57-65), the
+    pretrained imports (--resnet_init_path, --dino_init_path) and the warm
+    start (--warm_start_path), still on the CPU; moved to `device`; the
+    optimizer over the model's five groups, its moments at zero."""
     if cfg.dino_bf16:
         raise NotImplementedError(
             "--dino_bf16 (a bfloat16 trunk at rest) is not ported; the "
@@ -55,6 +54,9 @@ def init_state(cfg: Config, constants: MeshConstants, device,
         if dino is None:
             dino = DinoViTS8(img_size=cfg.img_size,
                              attn_bf16=cfg.dino_attn_bf16)
+    load_pretrained_init(cfg, model, dino)
+    if cfg.warm_start_path:
+        load_warm_start(cfg, model)
     model = model.to(device).train()
     dino = dino.to(device).eval().requires_grad_(False)
     dino.attn_bf16 = cfg.dino_attn_bf16

@@ -16,6 +16,13 @@ rename. Layout rules:
 from_jax_dino_params does the same for the frozen DINO trunk
 (models/vit.DinoViTS8), whose names are the released checkpoint's, the keys
 selfcorr_tpu/utils/weight_convert.py convert_dino_vits8 (:76) reads.
+
+The imports, counterparts of that module's loaders (:221-335), each into a
+module in place, on the CPU: load_torch_sd reads a .pth; load_pretrained_init
+a torchvision resnet18 into the backbone and a released DINO ViT-S/8 into the
+trunk; load_reference_ckpt a reference pred_net_*.pth into MeshNet;
+load_warm_start the backbone and FPN of an earlier run's checkpoint. Every
+import checks shapes, and a missing file raises FileNotFoundError.
 """
 from __future__ import annotations
 
@@ -23,6 +30,9 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+from selfcorr_tpu_torch.utils import checkpoint
 
 
 def _t(x) -> torch.Tensor:
@@ -165,3 +175,113 @@ def from_jax_dino_params(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         _dense(sd, dst + "mlp.fc2.", p["mlp"]["fc2"])
         i += 1
     return sd
+
+
+# ---------------------------------------------------------------------------
+# imports of torch checkpoints
+# ---------------------------------------------------------------------------
+
+# the subtrees a warm start copies: the ResNet18 backbone and the FPN
+# decoder (the JAX package's "backbone" and "featnet"), not the PointNet
+# encoder.featnet_mesh
+WARM_START = ("encoder.backbone.", "encoder.featnet.")
+
+
+def load_torch_sd(path: str) -> Dict[str, torch.Tensor]:
+    """torch.load a checkpoint to the CPU -> {key: tensor}; unwraps a
+    {"state_dict" | "model" | "teacher": ...} container and strips a
+    "module." prefix (selfcorr_tpu/utils/weight_convert.py:221)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model", "teacher"):
+        if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+            sd = sd[key]
+    return {k.removeprefix("module."): v for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _load(module: torch.nn.Module, values: Dict[str, torch.Tensor],
+          source: str) -> None:
+    """Copy `values` (keys of module.state_dict()) into `module`; raises
+    ValueError if a shape differs."""
+    own = module.state_dict()
+    bad = [(k, tuple(v.shape), tuple(own[k].shape))
+           for k, v in values.items() if v.shape != own[k].shape]
+    if bad:
+        raise ValueError(f"{source}: shapes differ from the model's "
+                         f"(key, file, model): {bad[:5]}")
+    module.load_state_dict(values, strict=False)
+
+
+def _pick(sd: dict, keys, source: str, prefix: str = "") -> dict:
+    missing = [prefix + k for k in keys if prefix + k not in sd]
+    if missing:
+        raise KeyError(f"{source}: {len(missing)} keys missing, e.g. "
+                       f"{missing[:3]}")
+    return {k: sd[prefix + k] for k in keys}
+
+
+def resize_pos_embed(pos: torch.Tensor, grid: int) -> torch.Tensor:
+    """(1, 1 + g*g, C) position embeddings -> (1, 1 + grid*grid, C): the
+    patch grid resized bicubically by F.interpolate on the CPU in float32,
+    as the JAX package and the reference resize it
+    (selfcorr_tpu/utils/weight_convert.py:94-100)."""
+    pos = pos.float()
+    g = int(round((pos.shape[1] - 1) ** 0.5))
+    if g == grid:
+        return pos
+    patches = pos[0, 1:].reshape(g, g, -1).permute(2, 0, 1)
+    patches = F.interpolate(patches[None], size=(grid, grid),
+                            mode="bicubic")[0]
+    return torch.cat([pos[:, :1], patches.permute(1, 2, 0).reshape(
+        1, grid * grid, -1)], 1)
+
+
+def load_pretrained_init(cfg, model, dino) -> None:
+    """cfg.resnet_init_path: a torchvision resnet18 state dict (keys
+    unprefixed when it has conv1.weight, else under
+    encoder.backbone.resnet.; its fc head ignored) into the backbone,
+    weights and BatchNorm statistics. cfg.dino_init_path: a released DINO
+    ViT-S/8 state dict into the trunk (blocks past it ignored), the
+    position embeddings resized to cfg.img_size // 8. An empty path leaves
+    its module as it is (selfcorr_tpu/utils/weight_convert.py:239)."""
+    if cfg.resnet_init_path:
+        sd = load_torch_sd(cfg.resnet_init_path)
+        prefix = "" if "conv1.weight" in sd else "encoder.backbone.resnet."
+        resnet = model.encoder.backbone.resnet
+        keys = [k for k in resnet.state_dict()
+                if not k.endswith("num_batches_tracked")]
+        _load(resnet, _pick(sd, keys, cfg.resnet_init_path, prefix),
+              cfg.resnet_init_path)
+    if cfg.dino_init_path:
+        sd = load_torch_sd(cfg.dino_init_path)
+        values = _pick(sd, dino.state_dict(), cfg.dino_init_path)
+        values["pos_embed"] = resize_pos_embed(values["pos_embed"],
+                                               cfg.img_size // 8)
+        _load(dino, values, cfg.dino_init_path)
+
+
+def load_reference_ckpt(path: str, model) -> None:
+    """A reference pred_net_*.pth into MeshNet, whose names are the
+    reference's: strict on shapes, lenient on keys the file lacks (the
+    reference's strict=False load); a file that matches no key raises
+    (selfcorr_tpu/utils/weight_convert.py:289)."""
+    sd = load_torch_sd(path)
+    own = model.state_dict()
+    values = {k: v for k, v in sd.items() if k in own}
+    if not values:
+        raise ValueError(f"{path}: no key matches the model's (e.g. "
+                         f"{sorted(sd)[:3]})")
+    _load(model, values, path)
+
+
+def load_warm_start(cfg, model) -> None:
+    """The backbone and FPN decoder (WARM_START), with their BatchNorm
+    buffers, from the port checkpoint at cfg.warm_start_path (a checkpoint
+    directory, its latest step, or a step directory); the heads, mean_v, the
+    PointNet and the trunk stay as they are. The rest of the checkpoint is
+    not shape-checked, so a source written at another img_size loads
+    (selfcorr_tpu/utils/weight_convert.py:310, which reads an orbax
+    directory instead)."""
+    src = checkpoint.restore_raw(cfg.warm_start_path)["model"]
+    keys = [k for k in model.state_dict() if k.startswith(WARM_START)]
+    _load(model, _pick(src, keys, cfg.warm_start_path), cfg.warm_start_path)

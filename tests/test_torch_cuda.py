@@ -2,14 +2,16 @@
 forward and backward in the compact schedule (B1, B2) and the dense-chunk
 schedule (B1', B2'), with and without surface texels, and the DINO
 attention kernel (B3) against their plain PyTorch versions, the predict path
-on the card against the same path on the CPU, and one full-width train step
-on the card. They skip without a card.
+on the card against the same path on the CPU, one full-width train step
+on the card, and a resume from a checkpoint on the card. They skip without a
+card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch; tests/conftest.py imports JAX, so skip it there:
 
   python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
+import contextlib
 import copy
 import os
 
@@ -432,3 +434,57 @@ def test_chunk_backward_honours_cleared_bits(cuda, tex_res):
     lim = 1e-4 * ref.abs().amax(dim=(0, 1))
     assert bool(((got - ref).abs() <= lim).all())
     assert not torch.allclose(got, b2)
+
+
+def test_resume_on_card(cuda, tmp_path):
+    """The resume case of tests/test_torch_checkpoint.py on the card: the
+    restored state equals the saved one bit for bit; the step after the
+    resume equals the straight run's second step bit for bit where two runs
+    of that step from one state agree bit for bit, and otherwise lies no
+    further from it than they lie from each other (cuDNN's and the atomic
+    scatters' sums need not repeat). The steps run with PyTorch's
+    deterministic algorithms, which should make that noise zero."""
+    from test_torch_checkpoint import (assert_equal_states, parse_args,
+                                       state_tensors, straight_and_resumed,
+                                       take_step, tiny_args)
+
+    def forked_step(trainer):
+        fork = copy.copy(trainer)
+        fork.state = copy.deepcopy(trainer.state)
+        m = take_step(fork, r["batches"][1], 1)
+        return {**state_tensors(fork), **{f"metric.{k}": v.reshape(1)
+                                          for k, v in m.items()}}
+
+    def max_diff(x, y):
+        return max(float((x[k].double() - y[k].double()).abs().max())
+                   for k in x)
+
+    with deterministic():
+        r = straight_and_resumed(parse_args(tiny_args(tmp_path, "cuda")))
+        noise = max_diff(forked_step(r["b0"]), forked_step(r["b0"]))
+    assert r["a"].state.model.mesh.mean_v.is_cuda
+    assert_equal_states(r["resumed"], r["saved"])
+    got = {**state_tensors(r["b"]), **{f"metric.{k}": v.reshape(1)
+                                       for k, v in r["mb"].items()}}
+    want = {**state_tensors(r["a"]), **{f"metric.{k}": v.reshape(1)
+                                        for k, v in r["ma"].items()}}
+    err = max_diff(got, want)
+    print(f"resumed vs straight step: max|diff| {err:.3g}; the step's own "
+          f"noise {noise:.3g}")
+    assert err == 0.0 if noise == 0.0 else err <= noise
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms (cuDNN's too) inside the block;
+    an op that has none warns and runs as it would."""
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]

@@ -83,11 +83,15 @@ def test_train_without_cpu_flag_needs_cuda():
               "--total_iters", "1"])
 
 
-def test_model_path_is_a_later_slice(tmp_path):
+@pytest.mark.parametrize("name", ["x.pth", "ckpt"])
+def test_model_path_is_a_later_slice(tmp_path, name):
+    """--model_path is ported (a reference .pth or a port checkpoint): a
+    path that does not exist raises, and never leaves the weights drawn
+    from --seed."""
     from selfcorr_tpu_torch.configs import Config
     from selfcorr_tpu_torch.eval.tester import Tester
-    with pytest.raises(NotImplementedError, match="later slice"):
-        Tester(Config(device="cpu", model_path="x.pth",
+    with pytest.raises(FileNotFoundError):
+        Tester(Config(device="cpu", model_path=str(tmp_path / name),
                       checkpoint_dir=str(tmp_path)))
 
 
@@ -158,7 +162,7 @@ def test_config_flag_files_ask_for_nothing_unported(flagfile):
 def test_defaults_and_ported_panels_still_construct(tmp_path, capsys):
     """The defaults with --vis_pred --visualize_{mask,tex,depth} (the
     predict path's panels) build a Trainer and a Tester on the CPU; the
-    Trainer says that it writes no checkpoint and logs no images."""
+    Trainer says that it logs no images."""
     from selfcorr_tpu_torch.configs import parse_args
     cfg = parse_args(["--flagfile", LAPTOP, *TINY, "--vis_pred",
                       "--visualize_mask", "--visualize_tex",
@@ -166,6 +170,6 @@ def test_defaults_and_ported_panels_still_construct(tmp_path, capsys):
                       str(tmp_path)])
     trainer = entry(_TRAIN)(cfg)
     assert trainer.state.step == 0
-    assert "writes no checkpoint" in capsys.readouterr().out
+    assert "logs no images" in capsys.readouterr().out
     tester = entry(_EVAL)(cfg.replace(train=False))
     assert tester.device.type == "cpu"

@@ -77,8 +77,43 @@ Phases, in order; any failure exits non-zero:
               the checkpoints and weight files are removed at the end
  11. report   every kernel held against its plain version at each training
               path's inputs (B1' and B2' also at the surface path's, texels
-              and all); one JSON line per the kernel table, then the result
-              line
+              and all)
+ 12. data     the dataset readers (images through Pillow) on fixtures
+              written by data/fixtures.py into an emptied .work/fixtures,
+              removed at the end: the image libraries found; the native box
+              IoU built by g++ (timed); (a) Wild6D training at the compact
+              path's width on 4 x 24 frames of 480 x 480, 3 steps (B1 = B2 =
+              3, B3 = 27), the decode ms per file and crop ms per frame, ms
+              per batch of 32 on one thread and through the TrainLoader at
+              4, 8 and 16 threads, and of each part of the reader alone
+              (decode, crop, stack and pack) at 1 and 8 threads, the host's
+              cores and CPU quota, the loop's wait on the loader per step
+              (timed by a TrainLoader subclass patched into the loop), the
+              warm step on the fixture beside phase 9's synthetic one, and
+              train_step while a TrainLoader makes batches beside it: the
+              whole reader at 4 and 8 threads, each part of it alone
+              (decode, crop, stack and pack), the whole reader and the
+              decoding alone with the step's thread pinned to one core and
+              the loader's to the others, the whole reader under a 0.5
+              ms GIL switch interval, and a profile of steps alone and
+              beside the reader (device-busy against wall ms); then 16 steps
+              (B1 = B2 = 16, B3 = 144), whose waits past the batches queued
+              ahead show whether the loader keeps up; (b) the predict entry
+              point with --eval --eval_nocs --vis_pred on the 2 x 6 test
+              frames (six finite NOCS metrics, B1 launched), then a warm
+              Tester.test() on a 2 x 96-frame split (12 full batches of 16):
+              frames/s with and without its set-up, the loop's ms per batch
+              on the loader and after it, beside predict_batch alone, valid
+              frames only; the NOCS accumulation per sample with the native
+              IoU beside scipy's;
+              (c) NOCS (config/nocs/laptop.txt, use_occ): one step (B1, B2,
+              9 B3), then --eval_nocs; (d) CUB (config/cub/cub.txt): one
+              step (B1, B2, 9 B3), then --eval_cub (finite mIoU, kp@0.1,
+              kp@0.2; B1 once for its one batch). Each run's counts are
+              zeroed just before and read just after, each training run's
+              first B1, B2 and B3 inputs and every evaluation B1 launch held
+              against the plain versions. Then the kernel table's JSON line
+              and the result line
 
 Tolerances, B1 (kernel vs plain): alpha 2e-3, depth 1.4e-2 absolute; tex /
 match 3.8e-3 relative to max(1, |plain|), which is absolute for colours in
@@ -857,6 +892,8 @@ def b3_phase(dev):
 # the predict slice
 # ---------------------------------------------------------------------------
 
+NOCS_KEYS = ("iou@25", "iou@50", "5deg2cm", "5deg5cm", "10deg2cm",
+             "10deg5cm")
 SLICE_ARGS = ["--flagfile", "config/wild6d/laptop.txt",
               "--dataset_name", "synthetic", "--eval", "--eval_nocs",
               "--vis_pred", "--visualize_mask", "--visualize_tex",
@@ -879,10 +916,10 @@ def slice_phase():
     wall = time.time() - t0
     print(f"[slice] predict.main wall {wall:.2f} s (cold: data, first "
           f"launches); kernel launches {launches}", flush=True)
-    keys = ("iou@25", "iou@50", "5deg2cm", "5deg5cm", "10deg2cm", "10deg5cm")
-    for k in keys:
+    for k in NOCS_KEYS:
         print(f"[slice] {k}: {results.get(k)}")
-    if not all(k in results and math.isfinite(results[k]) for k in keys):
+    if not all(k in results and math.isfinite(results[k])
+               for k in NOCS_KEYS):
         fail(f"NOCS metrics missing or not finite: {results}")
     if results.get("count") != 12:
         fail(f"expected 12 valid samples, got {results.get('count')}")
@@ -1041,6 +1078,7 @@ def train_phase(path: str):
                 for n in raster}
         caps["dino_flash_attn"] = stack.enter_context(
             Capture(A, "flash_attention_cuda"))
+        made = stack.enter_context(timed_loaders(loop, "TrainLoader"))
         reset_launches()
         t0 = time.time()
         trainer = loop.main(["train"] + args)
@@ -1541,6 +1579,616 @@ def report_main_path(path, captured):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dataset readers on fixtures
+# ---------------------------------------------------------------------------
+
+FIXTURES = os.path.join(ROOT, ".work", "fixtures")
+W6D_RAW = 480           # Wild6D-laptop fixture: raw frames 480 x 480
+RATE_FRAMES = 96        # per test video of the evaluation-rate split: 2 x
+                        # 96 frames, 12 full batches of 16
+LONG_STEPS = 16         # a run long enough to drain the loader's queue
+NOCS_HW = (480, 640)    # the REAL275 frame size
+CUB_HW = (480, 640)
+
+
+def image_probe():
+    """Which image libraries this machine has: the readers use Pillow."""
+    import importlib.util
+    from PIL import Image, features
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("PIL", "torchvision", "cv2")}
+    print(f"[data] image probe: Pillow {Image.__version__} (JPEG "
+          f"{features.check('jpg')}, libjpeg-turbo "
+          f"{features.check('libjpeg_turbo')}); installed "
+          f"{found}; the readers decode with Pillow", flush=True)
+    return dict(found, pillow=Image.__version__)
+
+
+def write_fixtures() -> dict:
+    """The three fixture trees under an emptied FIXTURES; their paths."""
+    from selfcorr_tpu_torch.data import fixtures as FX
+    shutil.rmtree(FIXTURES, ignore_errors=True)
+    t0 = time.time()
+    w6d = os.path.join(FIXTURES, "wild6d")
+    train_root, test_root = FX.wild6d_tree(
+        w6d, n_train_videos=4, n_test_videos=2, frames_per_video=24,
+        test_frames=6, raw_size=W6D_RAW)
+    FX.write_list(train_root, os.path.join(w6d, "train.txt"))
+    FX.write_list(test_root, os.path.join(w6d, "test.txt"))
+    rates = os.path.join(FIXTURES, "wild6d_rates")
+    _, rates_root = FX.wild6d_tree(
+        rates, n_train_videos=0, n_test_videos=2, test_frames=RATE_FRAMES,
+        raw_size=W6D_RAW)
+    FX.write_list(rates_root, os.path.join(rates, "test.txt"))
+    nocs_root = os.path.join(FIXTURES, "nocs", "real")
+    nocs_list = FX.nocs_tree(nocs_root, hw=NOCS_HW)
+    cub = {s: os.path.join(FIXTURES, f"cub_{s}", "cub") for s in
+           ("train", "test")}
+    cub_lists = {s: FX.cub_tree(r, per_class=3 if s == "train" else 4,
+                                hw=CUB_HW, split=s) for s, r in cub.items()}
+    print(f"[data] fixtures written in {time.time() - t0:.2f} s: Wild6D "
+          f"4 x 24 train / 2 x 6 test frames and a 2 x {RATE_FRAMES} "
+          f"evaluation-rate split at {W6D_RAW}^2, NOCS 3 frames "
+          f"at {NOCS_HW}, CUB 2 x 3 train / 2 x 4 test birds at {CUB_HW}",
+          flush=True)
+    return {"w6d_train": ["--dataset_path", train_root, "--train_list",
+                          os.path.join(w6d, "train.txt")],
+            "w6d_test": ["--test_dataset_path", test_root + "/",
+                         "--test_list", os.path.join(w6d, "test.txt")],
+            "w6d_rates": ["--test_dataset_path", rates_root + "/",
+                          "--test_list", os.path.join(rates, "test.txt")],
+            "nocs": ["--dataset_path", nocs_root, "--train_list", nocs_list,
+                     "--test_dataset_path", nocs_root, "--test_list",
+                     nocs_list],
+            "cub_train": ["--dataset_path", cub["train"], "--train_list",
+                          cub_lists["train"]],
+            "cub_test": ["--test_dataset_path", cub["test"], "--test_list",
+                         cub_lists["test"]]}
+
+
+def loading_costs(trainer) -> dict:
+    """Host costs of the Wild6D fixture's training data: decode ms per file
+    and crop ms per frame (medians over every training frame), ms per batch
+    of 32 on one thread, and with the TrainLoader's thread pool."""
+    from selfcorr_tpu_torch.data.crops import crop_frame
+    from selfcorr_tpu_torch.data.loader import TrainLoader, stack_items
+    from selfcorr_tpu_torch.train.loop import make_train_dataset
+    from selfcorr_tpu_torch.train.step import compress_batch_host
+    from selfcorr_tpu_torch.utils import imageio as io
+    cfg = trainer.cfg
+    ds = make_train_dataset(cfg)
+    times = {"jpeg": [], "mask_png": [], "depth_png": [], "crop": []}
+
+    def timed(key, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        times[key].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for v in ds.videos.videos:
+        for img_p, mask_p, depth_p in zip(v["imgs"], v["masks"],
+                                          v["depths"]):
+            img = timed("jpeg", io.read_rgb, img_p)
+            mask = timed("mask_png", io.read_gray, mask_p) > 0
+            depth = timed("depth_png", io.read_unchanged,
+                          depth_p).astype(np.float32)
+            timed("crop", crop_frame, img, mask, depth,
+                  np.array([576.0, 576.0], np.float32),
+                  np.array([240.0, 240.0], np.float32), cfg.img_size,
+                  np.array([1.35, 1.35]))
+    med = {k: statistics.median(t) for k, t in times.items()}
+    seq = []
+    for step in range(3):
+        t0 = time.perf_counter()
+        compress_batch_host(stack_items([ds.load_item(*a)
+                                         for a in ds.sample_plan(step)]))
+        seq.append((time.perf_counter() - t0) * 1e3)
+    pooled = {}
+    for threads in (4, cfg.num_workers, 16):
+        loader = TrainLoader(ds, cfg.replace(total_iters=8,
+                                             num_workers=threads),
+                             host_transform=compress_batch_host)
+        try:
+            t0 = time.perf_counter()
+            got = sum(1 for _ in loader)
+            pooled[threads] = (time.perf_counter() - t0) * 1e3 / got
+        finally:
+            loader.close()
+    parts = {f"{part}_{n}": loader_alone_ms(cfg, PartReader(cfg, part), n)
+             for part in ("decode", "crop", "pack")
+             for n in (1, cfg.num_workers)}
+    facts = host_facts()
+    out = {f"{k}_ms": v for k, v in med.items()}
+    out.update(files=len(times["jpeg"]), batch_ms_one_thread=seq,
+               batch_ms_loader_by_threads=pooled,
+               loader_threads=cfg.num_workers,
+               batch_ms_loader_by_part=parts, host=facts)
+    print(f"[data] decode ms per file (median of {out['files']} each): JPEG "
+          f"{med['jpeg']:.3f}, mask PNG {med['mask_png']:.3f}, depth PNG "
+          f"{med['depth_png']:.3f}; crop {med['crop']:.3f} ms per frame; "
+          f"a batch of 32 on one thread "
+          f"{', '.join(f'{t:.1f}' for t in seq)} ms; through the "
+          f"TrainLoader alone, ms per batch over 8 batches: "
+          + ", ".join(f"{n} threads {t:.1f}" for n, t in pooled.items())
+          + f" (the loop's default {cfg.num_workers}); each part of the "
+          f"reader alone through the TrainLoader, ms per batch: "
+          + ", ".join(f"{k} threads {v:.1f}" for k, v in parts.items())
+          + f"; host {facts}", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def timed_loaders(module, name: str):
+    """Replaces the loader class module.<name> with a subclass that times,
+    per batch, the consumer's wait in next() and the rest of its iteration
+    (the loop's step, or the tester's predict and metrics), and the moment
+    its constructor returned; yields the list of loaders made meanwhile.
+    The loop and the tester themselves keep no timings."""
+    base = getattr(module, name)
+    made = []
+
+    class Timed(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.built = time.perf_counter()
+            self.waits, self.walls = [], []
+            made.append(self)
+
+        def __iter__(self):
+            ready = time.perf_counter()
+            for batch in super().__iter__():
+                got = time.perf_counter()
+                self.waits.append(got - ready)
+                yield batch
+                ready = time.perf_counter()
+                self.walls.append(ready - got)
+
+    setattr(module, name, Timed)
+    try:
+        yield made
+    finally:
+        setattr(module, name, base)
+
+
+class PartReader:
+    """The Wild6D training reader doing one part of its load_item in the
+    loader's threads: 'decode' reads the frame's JPEG, mask PNG and depth
+    PNG and returns an item cropped beforehand; 'crop' crops frames
+    decoded beforehand; 'pack' returns the item cropped beforehand, so only
+    the loader's stacking and packing run. The plan is the reader's."""
+
+    def __init__(self, cfg, part: str):
+        from selfcorr_tpu_torch.train.loop import make_train_dataset
+        self.ds, self.part = make_train_dataset(cfg), part
+        self.sample_plan = self.ds.sample_plan
+        vids = self.ds.videos
+        self.item = self.ds.load_item(0, 0, np.array([1.35, 1.35]))
+        if part == "crop":
+            frames = {(v, f): vids.read_frame(v, f, cfg.use_depth)
+                      for v in range(len(vids))
+                      for f in range(vids.num_frames(v))}
+            vids.read_frame = lambda v, f, use_depth: frames[v, f]
+
+    def load_item(self, vid, fid, scale):
+        if self.part == "crop":
+            return self.ds.load_item(vid, fid, scale)
+        if self.part == "decode":
+            self.ds.videos.read_frame(vid, fid, self.ds.cfg.use_depth)
+        return self.item
+
+
+@contextlib.contextmanager
+def loader_beside(cfg, dataset, threads: int, batches: int):
+    """A TrainLoader of `threads` threads making `batches` batches of
+    `dataset`, its first batch already taken; yields a function that takes
+    (and drops) the next batch, as the loop takes them."""
+    from selfcorr_tpu_torch.data.loader import TrainLoader
+    from selfcorr_tpu_torch.train.step import compress_batch_host
+    loader = TrainLoader(dataset, cfg.replace(total_iters=batches,
+                                              num_workers=threads),
+                         host_transform=compress_batch_host)
+    it = iter(loader)
+    next(it)
+    try:
+        yield lambda: next(it)
+    finally:
+        loader.close()
+
+
+def host_facts() -> dict:
+    """The host's cores as this process sees them: the count, the affinity
+    set, the cgroup's CPU quota and the first core's hyperthread
+    siblings."""
+    def read(path):
+        try:
+            with open(path) as f:
+                return f.read().strip()
+        except OSError:
+            return None
+    cpus = sorted(os.sched_getaffinity(0))
+    return {"cpu_count": os.cpu_count(), "affinity": cpus,
+            "cgroup_cpu_max": read("/sys/fs/cgroup/cpu.max"),
+            "siblings_of_first": read(
+                f"/sys/devices/system/cpu/cpu{cpus[0]}/topology/"
+                f"thread_siblings_list")}
+
+
+def core_split():
+    """(the step's core, the loader's cores): the first core this process
+    may run on, and every other one but its hyperthread siblings."""
+    cpus = sorted(os.sched_getaffinity(0))
+    sib = host_facts()["siblings_of_first"] or str(cpus[0])
+    near = set()
+    for part in sib.split(","):
+        lo, _, hi = part.partition("-")
+        near.update(range(int(lo), int(hi or lo) + 1))
+    return cpus[0], [c for c in cpus if c not in near]
+
+
+@contextlib.contextmanager
+def pinned(cpus):
+    """The calling thread on `cpus` (threads it starts meanwhile inherit
+    them); its affinity restored after."""
+    old = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, cpus)
+    try:
+        yield
+    finally:
+        os.sched_setaffinity(0, old)
+
+
+def loader_alone_ms(cfg, dataset, threads: int, batches: int = 6) -> float:
+    """ms per batch of a TrainLoader of `threads` threads over `dataset`,
+    nothing else running, its first batch left out."""
+    from selfcorr_tpu_torch.data.loader import TrainLoader
+    from selfcorr_tpu_torch.train.step import compress_batch_host
+    loader = TrainLoader(dataset, cfg.replace(total_iters=batches + 1,
+                                              num_workers=threads),
+                         host_transform=compress_batch_host)
+    try:
+        it = iter(loader)
+        next(it)
+        t0 = time.perf_counter()
+        got = sum(1 for _ in it)
+        return (time.perf_counter() - t0) * 1e3 / got
+    finally:
+        loader.close()
+
+
+def step_ms(trainer, take=None, reps: int = 8) -> float:
+    """Median warm train_step ms on one uploaded batch of the trainer's
+    data, the loading excluded; `take`, when given, is called before each
+    step (a loader_beside making batches meanwhile)."""
+    from selfcorr_tpu_torch.train.step import train_step
+    cfg = trainer.cfg
+    batch, draws = train_batch(trainer)
+    train_step(trainer.state, batch, draws, cfg)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        if take is not None:
+            take()
+        t0 = time.time()
+        train_step(trainer.state, batch, draws, cfg)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def step_beside_loaders(trainer, card: str, reps: int = 8) -> dict:
+    """train_step while loaders work beside it: the whole reader at 4 and 8
+    threads, the reader's parts alone at 8 (PartReader), the whole reader
+    at 8 under a 0.5 ms GIL switch interval (Python's default is 5 ms),
+    the whole reader and the decoding alone at 8 with the step's thread
+    pinned to one core and the loader's threads to the others (its
+    hyperthread siblings left out), and one profile of steps alone and
+    beside the whole reader: device-busy ms against wall ms per step."""
+    from selfcorr_tpu_torch.train.loop import make_train_dataset
+    from selfcorr_tpu_torch.train.step import train_step
+    cfg = trainer.cfg
+    n = cfg.num_workers
+    out = {"alone": step_ms(trainer, reps=reps)}
+    for threads in (4, n):
+        with loader_beside(cfg, make_train_dataset(cfg), threads,
+                           reps + 2) as take:
+            out[f"reader_{threads}"] = step_ms(trainer, take, reps)
+    for part in ("decode", "crop", "pack"):
+        with loader_beside(cfg, PartReader(cfg, part), n, reps + 2) as take:
+            out[f"{part}_only_{n}"] = step_ms(trainer, take, reps)
+    step_core, loader_cores = core_split()
+    if loader_cores:
+        for name, ds in (("reader", make_train_dataset(cfg)),
+                         ("decode_only", PartReader(cfg, "decode"))):
+            with contextlib.ExitStack() as stack:
+                with pinned(loader_cores):
+                    take = stack.enter_context(
+                        loader_beside(cfg, ds, n, reps + 2))
+                with pinned([step_core]):
+                    out[f"{name}_{n}_pinned"] = step_ms(trainer, take, reps)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    try:
+        with loader_beside(cfg, make_train_dataset(cfg), n,
+                           reps + 2) as take:
+            out[f"reader_{n}_switch_0.5ms"] = step_ms(trainer, take, reps)
+    finally:
+        sys.setswitchinterval(switch)
+    batch, draws = train_batch(trainer)
+
+    def step(take=None):
+        if take is not None:
+            take()
+        train_step(trainer.state, batch, draws, cfg)
+        torch.cuda.synchronize()
+
+    prof = {"alone": profile_calls(step, 6, "w6d_train train_step alone",
+                                   "w6d_step_alone_profile.txt")}
+    with loader_beside(cfg, make_train_dataset(cfg), n, 8) as take:
+        prof["reader"] = profile_calls(
+            lambda: step(take), 6,
+            f"w6d_train train_step beside a {n}-thread reader",
+            "w6d_step_loader_profile.txt")
+    out["profile"] = {k: {"wall_ms": p["wall_ms"],
+                          "device_busy_ms": p["device_busy_ms"]}
+                      for k, p in prof.items()}
+    print(f"[w6d_train] warm train_step ms (median of {reps}) beside a "
+          f"TrainLoader making batches: " + ", ".join(
+              f"{k} {v:.2f}" for k, v in out.items() if k != "profile")
+          + f" (torch CPU threads {torch.get_num_threads()}; pinned: the "
+          f"step on core {step_core}, the loader on {loader_cores}); "
+          f"profiled, wall / device busy ms per "
+          f"step: " + ", ".join(
+              f"{k} {p['wall_ms']:.2f} / {p['device_busy_ms']:.2f}"
+              for k, p in out["profile"].items()) + f" on {card}",
+          flush=True)
+    return out
+
+
+def data_train(tag: str, flagfile: str, data_args, steps: int):
+    """The training entry point on a fixture, launch counts zeroed just
+    before and read just after: one render and 9 attention blocks a step,
+    every logged loss finite. Returns (trainer, launches, the loader's
+    wait in next() and the rest of the iteration, ms per step)."""
+    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.train import loop
+    args = ["--flagfile", flagfile, *data_args, "--total_iters", str(steps),
+            "--batch_log_interval", "1", "--checkpoint_dir", OUT, "--name",
+            fresh_run(tag)]
+    raster = ("raster_fused_fwd", "raster_fused_bwd")
+    with contextlib.ExitStack() as stack:
+        caps = {n: stack.enter_context(Capture(KR, f"{n}_cuda"))
+                for n in raster}
+        caps["dino_flash_attn"] = stack.enter_context(
+            Capture(A, "flash_attention_cuda"))
+        made = stack.enter_context(timed_loaders(loop, "TrainLoader"))
+        reset_launches()
+        t0 = time.time()
+        trainer = loop.main(["train"] + args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    drop_checkpoints()
+    timing = {"wait_ms": [w * 1e3 for w in made[0].waits],
+              "wall_ms": [w * 1e3 for w in made[0].walls]}
+    want = {n: steps if n in raster else 0 for n in launches}
+    want["dino_flash_attn"] = ATTN_PER_STEP * steps
+    print(f"[{tag}] loop.main {steps} steps on the fixture, wall "
+          f"{time.time() - t0:.2f} s; kernel launches {launches}; loader "
+          f"wait per step (ms) "
+          f"{', '.join(f'{w:.2f}' for w in timing['wait_ms'])}",
+          flush=True)
+    if launches != want:
+        fail(f"{tag}: launches {launches}, expected {want}")
+    bad = [(st, k, v) for st, vals in trainer.logged for k, v in vals.items()
+           if not math.isfinite(v)]
+    if len(trainer.logged) != steps or bad:
+        fail(f"{tag}: logged {len(trainer.logged)} of {steps} steps; "
+             f"non-finite metrics: {bad}")
+    print(f"[{tag}] logged total_loss: "
+          + " ".join(f"{v['total_loss']:.8f}" for _, v in trainer.logged))
+    for name, cap in caps.items():
+        for args in cap.calls:      # its first launch (the counts are held)
+            _, err, ok = hold(name, *args)
+            if not ok:
+                fail(f"{tag}: {name} disagrees with its plain version at "
+                     f"this path's inputs ({err})")
+    return trainer, launches, timing
+
+
+def data_eval(tag: str, flagfile: str, data_args, extra, keys):
+    """The predict entry point on a fixture, launch counts zeroed just
+    before and read just after; every B1 launch held against the plain
+    version; the metrics `keys` finite. Returns (results, launches)."""
+    from selfcorr_tpu_torch import predict
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    args = ["--flagfile", flagfile, *data_args, "--eval", *extra,
+            "--repeat", "1", "--dframe_eval", "1", "--checkpoint_dir", OUT,
+            "--name", fresh_run(tag)]
+    with Capture(KR, "raster_fused_fwd_cuda", keep_all=True) as cap:
+        reset_launches()
+        t0 = time.time()
+        results = predict.main(["predict"] + args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    print(f"[{tag}] predict.main wall {time.time() - t0:.2f} s (cold); "
+          f"kernel launches {launches}; "
+          + " ".join(f"{k} {results.get(k)}" for k in keys), flush=True)
+    if not all(k in results and math.isfinite(results[k]) for k in keys):
+        fail(f"{tag}: metrics missing or not finite: {results}")
+    for i, c in enumerate(cap.calls):
+        _, err, ok = hold("raster_fused_fwd", *c)
+        if not ok:
+            fail(f"{tag}: B1 launch {i} disagrees with its plain version")
+    return results, launches
+
+
+def eval_rates(args, card: str) -> dict:
+    """Wild6D evaluation over the 2 x RATE_FRAMES split (12 full batches of
+    16): a warm Tester.test() (loading, predict, metrics), its set-up
+    (dataset index, GT pkl, loader pool) apart from its loop, the loop's
+    ms per batch waiting on the TestLoader and after it, and
+    predict_batch alone, valid frames only in every rate; the native IoU's
+    accumulate ms per sample beside the scipy IoU's."""
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.data.loader import TestLoader
+    from selfcorr_tpu_torch.eval import metrics
+    from selfcorr_tpu_torch.eval import tester as T
+    from selfcorr_tpu_torch.eval.box3d import Box3D, box_iou
+    cfg = parse_args(args).replace(train=False, vis_pred=False,
+                                   device="cuda")
+    tester = T.Tester(cfg)
+    tester.test()                                    # warm
+    torch.cuda.synchronize()
+    with timed_loaders(T, "TestLoader") as made:
+        t0 = time.perf_counter()
+        res = tester.test()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    ld, frames = made[0], res["count"]
+    if frames != 2 * RATE_FRAMES or len(ld.waits) != len(ld):
+        fail(f"w6d_rates: {frames} frames in {len(ld.waits)} batches")
+    setup_ms = (ld.built - t0) * 1e3
+    loop_s = t1 - ld.built
+    rates = {"frames": frames, "batches": len(ld.waits),
+             "setup_ms": setup_ms, "e2e_fps": frames / (t1 - t0),
+             "loop_fps": frames / loop_s,
+             "load_ms_per_batch": statistics.median(ld.waits) * 1e3,
+             "rest_ms_per_batch": statistics.median(ld.walls) * 1e3}
+    loader = TestLoader(T.make_test_dataset(cfg), cfg)
+    batch = next(iter(loader))
+    loader.close()
+    tester.predict_batch(batch)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(10):
+        _, fit = tester.predict_batch(batch)
+    torch.cuda.synchronize()
+    rates["predict_batch_fps"] = (int(batch["valid"].sum()) * 10
+                                  / (time.time() - t0))
+
+    bbox9 = fit["bbox9"].cpu().numpy()
+    gts = [(batch["rot_gt"][i], batch["trans_gt"][i], batch["scale_gt"][i])
+           for i in np.flatnonzero(batch["valid"])]
+    acc_ms = {}
+    for sym in (cfg.symmetry_idx, 0):
+        acc = metrics.NocsAccumulator(sym)
+        t0 = time.perf_counter()
+        for i, g in enumerate(gts):
+            acc.add(bbox9[i], *g)
+        acc_ms[f"native_sym{sym}"] = ((time.perf_counter() - t0) * 1e3
+                                      / len(gts))
+        t0 = time.perf_counter()
+        for i, (rot, trans, scale) in enumerate(gts):
+            box = Box3D(bbox9[i])
+            n = 18 if sym == 0 else 1
+            for k in range(n):
+                box_iou(box, Box3D.from_transformation(
+                    metrics._axis_angle_matrix(rot[:, 1], k * 2 * np.pi / n)
+                    @ rot, trans, scale))
+            metrics.deg_cm_error(sym, box, rot, trans, scale)
+        acc_ms[f"scipy_sym{sym}"] = ((time.perf_counter() - t0) * 1e3
+                                     / len(gts))
+    print(f"[w6d_rates] warm Tester.test() over {frames} valid frames in "
+          f"{rates['batches']} batches of {cfg.batch_size}: "
+          f"{rates['e2e_fps']:.1f} frames/s with its set-up "
+          f"({setup_ms:.2f} ms), {rates['loop_fps']:.1f} frames/s over its "
+          f"loop, whose batches wait a median "
+          f"{rates['load_ms_per_batch']:.2f} ms on the TestLoader and take "
+          f"{rates['rest_ms_per_batch']:.2f} ms after it (predict, "
+          f"metrics); predict_batch alone {rates['predict_batch_fps']:.1f} "
+          f"frames/s on {card}", flush=True)
+    print(f"[w6d_rates] NOCS accumulate ms per sample, native IoU beside "
+          f"scipy's: " + ", ".join(f"{k} {v:.4f}" for k, v in acc_ms.items())
+          + " (sym-1: one IoU, the laptop's; sym0: the 18-rotation sweep)",
+          flush=True)
+    return dict(rates, accumulate_ms=acc_ms)
+
+
+def build_native() -> float:
+    """Seconds to build the native box IoU with g++ from its source (any
+    library built before is removed first) and bind it."""
+    from selfcorr_tpu_torch.eval import box3d_native
+    from selfcorr_tpu_torch.utils.cuda_build import library_path
+    path = library_path(box3d_native.SOURCE, box3d_native.FLAGS)
+    if os.path.exists(path):
+        os.remove(path)
+    box3d_native._lib = None
+    t0 = time.time()
+    box3d_native.build()
+    build_s = time.time() - t0
+    print(f"[data] native box IoU: g++ build and bind {build_s:.3f} s",
+          flush=True)
+    return build_s
+
+
+def data_phase(card: str, synthetic_step_ms: float) -> dict:
+    """Phase 12 (a)-(d) on fixtures written here and removed at the end."""
+    out = {"probe": image_probe(), "native_build_s": build_native()}
+    try:
+        paths = write_fixtures()
+        w6d = "config/wild6d/laptop.txt"
+        # (a) Wild6D training, the compact path's width
+        trainer, out["w6d_train_launches"], timing = data_train(
+            "w6d_train", w6d, paths["w6d_train"], 3)
+        out["loading"] = loading_costs(trainer)
+        out["loader_wait_ms"] = timing["wait_ms"]
+        out["step_ms_loading"] = step_beside_loaders(trainer, card)
+        out["step_ms_fixture"] = out["step_ms_loading"]["alone"]
+        out["step_ms_synthetic"] = synthetic_step_ms
+        print(f"[w6d_train] loader wait per step "
+              f"{', '.join(f'{w:.2f}' for w in timing['wait_ms'])} ms (the "
+              f"first includes the first batch); warm train_step on the "
+              f"fixture {out['step_ms_fixture']:.2f} ms, on synthetic data "
+              f"{synthetic_step_ms:.2f} ms (phase 9) on {card}", flush=True)
+        del trainer
+        # past the batches the loader queued ahead of the first step
+        _, out["w6d_train_long_launches"], timing = data_train(
+            "w6d_train_long", w6d, paths["w6d_train"], LONG_STEPS)
+        out["loader_wait_ms_long"] = timing["wait_ms"]
+        out["step_wall_ms_long"] = timing["wall_ms"]
+        steady = timing["wait_ms"][4:]
+        print(f"[w6d_train_long] loader wait per step, steps 5-{LONG_STEPS}: "
+              f"median {statistics.median(steady):.2f} ms, mean "
+              f"{statistics.mean(steady):.2f} ms, max {max(steady):.2f} ms; "
+              f"the loop's ms per step after the wait "
+              f"{', '.join(f'{w:.1f}' for w in timing['wall_ms'])} on "
+              f"{card}", flush=True)
+        # (b) Wild6D evaluation
+        out["w6d_eval"], out["w6d_eval_launches"] = data_eval(
+            "w6d_eval", w6d, paths["w6d_test"] + ["--batch_size", "16"],
+            ["--eval_nocs", "--vis_pred"], NOCS_KEYS)
+        if out["w6d_eval_launches"]["raster_fused_fwd"] == 0:
+            fail("w6d_eval: the panels never launched B1")
+        out["w6d_eval_rates"] = eval_rates(
+            ["--flagfile", w6d, *paths["w6d_rates"], "--batch_size", "16",
+             "--eval", "--eval_nocs", "--repeat", "1", "--dframe_eval", "1",
+             "--checkpoint_dir", OUT, "--name", fresh_run("w6d_rates")],
+            card)
+        # (c) NOCS
+        nocs = "config/nocs/laptop.txt"
+        _, out["nocs_train_launches"], _ = data_train("nocs_train", nocs,
+                                                      paths["nocs"], 1)
+        out["nocs_eval"], _ = data_eval("nocs_eval", nocs, paths["nocs"],
+                                        ["--eval_nocs", "--batch_size",
+                                         "16"], NOCS_KEYS)
+        # (d) CUB
+        cub = "config/cub/cub.txt"
+        _, out["cub_train_launches"], _ = data_train("cub_train", cub,
+                                                     paths["cub_train"], 1)
+        out["cub_eval"], out["cub_eval_launches"] = data_eval(
+            "cub_eval", cub, paths["cub_test"],
+            ["--eval_cub", "--batch_size", "8"], ("mIoU", "kp@0.1",
+                                                  "kp@0.2"))
+        if out["cub_eval_launches"]["raster_fused_fwd"] != 1:
+            fail(f"cub_eval: B1 launched "
+                 f"{out['cub_eval_launches']['raster_fused_fwd']} times for "
+                 f"one eval batch")
+    finally:
+        shutil.rmtree(FIXTURES, ignore_errors=True)
+        drop_checkpoints()
+    return out
+
 _CSRC = "selfcorr_tpu_torch/ops/rasterizer/csrc/"
 _PALLAS = "selfcorr_tpu/ops/rasterizer/pallas_raster.py"
 # kernel: (source, the TPU kernel it replaces, the training path whose run
@@ -1666,6 +2314,12 @@ def main() -> int:
     # B1' and B2' with texels at the surface path's inputs too
     captured["train_surface"] = with_chunks(captured["train_surface"])
     main_costs = {p: report_main_path(p, c) for p, c in captured.items()}
+
+    phase("data: Wild6D, NOCS and CUB fixtures")
+    data = data_phase(smi, steps["train"][0])
+    launches.update({p: data[f"{p}_launches"] for p in (
+        "w6d_train", "w6d_train_long", "w6d_eval", "nocs_train",
+        "cub_train", "cub_eval")})
     summary = {"card": smi, "build_s": build_s, "resource_usage": usage,
                "fwd_sass_lds": lds,
                "predict_ms_per_batch": per_batch * 1e3,
@@ -1679,7 +2333,7 @@ def main() -> int:
                "train_imgs_per_s": {p: s[1] for p, s in steps.items()},
                "train_profile": {p: s[2] for p, s in steps.items()},
                "train_step_parity": parity, "train_paths": main_costs,
-               "checkpoint": ckpt_res}
+               "checkpoint": ckpt_res, "data": data}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     rows = []

@@ -165,8 +165,9 @@ _MULTI_PROCESS = ("multihost", "coordinator_address", "num_processes",
 def refuse_unported(cfg: Config, train: bool) -> None:
     """Raise NotImplementedError if cfg asks the training loop (train) or
     the evaluation for what the port does not do yet: more than one device
-    or process; in training the profiler trace and batches made on the
-    device; in evaluation the panels drawn with cv2."""
+    or process; in training the profiler trace, batches made on the device
+    and loader processes; in evaluation the panels drawn with cv2 (among
+    them the keypoint panels of --vis_pred with --eval_cub)."""
     default = Config()
     asked = []
     if cfg.num_devices > 1:
@@ -180,9 +181,15 @@ def refuse_unported(cfg: Config, train: bool) -> None:
         if cfg.synthetic_on_device:
             asked.append("--synthetic_on_device (batches made on the "
                          "device)")
+        if cfg.loader_processes:
+            asked.append("--loader_processes (decoding in worker "
+                         "processes)")
     else:
         asked += [f"--visualize_{n} (a panel drawn with cv2)"
                   for n in CV2_PANELS if getattr(cfg, f"visualize_{n}")]
+        if cfg.vis_pred and cfg.eval_cub:
+            asked.append("--vis_pred with --eval_cub (keypoint panels drawn "
+                         "with cv2)")
     if asked:
         raise NotImplementedError(
             f"{'; '.join(asked)}: not ported yet, this comes in a later "

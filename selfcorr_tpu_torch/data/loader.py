@@ -16,7 +16,7 @@ from selfcorr_tpu_torch.configs import Config
 
 BATCH_KEYS = ("img", "mask", "depth", "occ", "pp_crop", "foc_crop")
 _META_KEYS = ("center", "length", "foc", "pp", "idx", "frame_idx")
-_GT_KEYS = ("rot_gt", "trans_gt", "scale_gt")
+_GT_KEYS = ("rot_gt", "trans_gt", "scale_gt", "kp", "sfm_pose")
 
 
 def stack_items(items):
@@ -30,7 +30,10 @@ def stack_items(items):
 
 class TrainLoader:
     """Iterates cfg.total_iters - start batches of a dataset with
-    sample_plan(step) -> [item args] and load_item(*args). host_transform,
+    sample_plan(step) -> [item args] and load_item(*args): each plan entry
+    carries its item's random draws (a crop scale, CUB's box jitter), drawn
+    in plan order, so the batches do not depend on which thread loads
+    which item. host_transform,
     when given, is applied to each stacked batch in the producer thread
     (the compact-dtype packing). Call close() when done."""
 

@@ -1,12 +1,16 @@
-"""NOCS-style pose metrics on the host (counterpart of
-selfcorr_tpu/eval/metrics.py): exact 3D IoU with an 18-fold y-rotation sweep
-for y-symmetric categories, and degree / cm errors. IoU comes from
-box3d.box_iou (scipy ConvexHull); the native C++ IoU is later work."""
+"""Pose and CUB metrics on the host (counterpart of
+selfcorr_tpu/eval/metrics.py): the exact 3D IoU of the native C++ clipper
+(eval/box3d_native.py), for y-symmetric categories the best over 18
+rotations of the GT about its y axis; degree / cm errors; the CUB mask IoU
+and keypoint transfer through the dense match fields."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-from selfcorr_tpu_torch.eval.box3d import Box3D, box_iou
+from selfcorr_tpu_torch.eval import box3d_native as native
+from selfcorr_tpu_torch.eval.box3d import Box3D
+from selfcorr_tpu_torch.ops.image_ops import grid_sample
 
 
 def _axis_angle_matrix(axis: np.ndarray, angle: float) -> np.ndarray:
@@ -23,11 +27,12 @@ def best_iou(symmetry_idx: int, box_pred: Box3D, rot_gt, trans_gt, scale_gt,
     over `division` rotations of the GT about its own y axis."""
     if symmetry_idx == 0:
         y_axis = rot_gt[:, 1].copy()
-        return max(box_iou(box_pred, Box3D.from_transformation(
+        cands = np.stack([Box3D.from_transformation(
             _axis_angle_matrix(y_axis, i * 2 * np.pi / division) @ rot_gt,
-            trans_gt, scale_gt)) for i in range(division))
-    return box_iou(box_pred,
-                   Box3D.from_transformation(rot_gt, trans_gt, scale_gt))
+            trans_gt, scale_gt).vertices for i in range(division)])
+        return native.iou_max(box_pred.vertices, cands)
+    return native.iou(box_pred.vertices, Box3D.from_transformation(
+        rot_gt, trans_gt, scale_gt).vertices)
 
 
 def deg_cm_error(symmetry_idx: int, box_pred: Box3D, rot_gt, trans_gt,
@@ -81,3 +86,38 @@ class NocsAccumulator:
             out[k] = float(np.median(raw[:, i])) if len(raw) else 0.0
         out["count"] = len(raw)
         return out
+
+
+def mask_iou(mask_gt: np.ndarray, mask_pred: np.ndarray) -> np.ndarray:
+    """(B, H, W) -> (B,) intersection over union."""
+    inter = (mask_gt * mask_pred).sum(axis=(1, 2))
+    union = (mask_gt + mask_pred - mask_gt * mask_pred).sum(axis=(1, 2))
+    return inter / np.maximum(union, 1e-9)
+
+
+def map_kp(kps_vis1, kps_vis2, kps1, kps2, match1, match2, mask1, mask2):
+    """Keypoint transfer through the dense canonical-coordinate fields:
+    each keypoint of image 1 takes its match1 value (bilinear,
+    align_corners=False) and goes to the pixel of image 2 whose match2 value
+    is nearest, among mask2's pixels.
+
+    kps* (B, K, 3): xy in [-1, 1] and visibility; match* (B, H, W, 3);
+    masks (B, H, W). Returns (transfer (B, K, 2) in [-1, 1), error (B, K)
+    against kps2, min_dist (B, K), kp_mask (B, K))."""
+    b = kps1.shape[0]
+    h, w = match2.shape[1:3]
+    kp_mask = kps_vis1 * kps_vis2
+    kps1_3d = grid_sample(torch.as_tensor(np.asarray(match1, np.float32)),
+                          torch.as_tensor(np.asarray(kps1[..., :2],
+                                                     np.float32))).numpy()
+    m2 = match2.reshape(b, h * w, 3)
+    d = np.linalg.norm(kps1_3d[:, :, None, :] - m2[:, None, :, :], axis=-1)
+    d = d + (1.0 - mask2.reshape(b, 1, h * w)) * 1000.0
+    min_idx = d.argmin(axis=2)
+    min_dist = np.take_along_axis(d, min_idx[..., None], 2)[..., 0]
+    min_dist = min_dist + (1.0 - kps_vis1) * 1000.0
+    tx = (min_idx % w).astype(np.float64) * 2 / w - 1
+    ty = (min_idx // w).astype(np.float64) * 2 / h - 1
+    transfer = np.stack([tx, ty], axis=-1)
+    err = np.linalg.norm(transfer - kps2[..., :2], axis=-1)
+    return transfer, err, min_dist, kp_mask

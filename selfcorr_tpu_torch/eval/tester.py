@@ -1,16 +1,22 @@
 """Evaluation driver (counterpart of selfcorr_tpu/eval/tester.py), single
 device: per batch the eval forward and the whole-batch RANSAC pose fit run
-on the device; the exact 3D IoU / deg-cm metrics run on the host. The
-weights come from --model_path (a port checkpoint or a reference .pth),
-else from --seed; the run's flags go to checkpoint_dir/name/config-test.txt.
+on the device; the exact 3D IoU / deg-cm metrics (--eval_nocs) run on the
+host. The test split is Wild6D, NOCS, CUB or the synthetic set
+(--dataset_name). With --eval_cub the fitted mesh's mask is rendered at
+img_size (the fused rasterizer: the CUDA kernel on a CUDA device) and
+scored by mask IoU, and the keypoints of each batch's first half are
+carried to its second half through the match fields (PCK at 0.1 and 0.2).
+The weights come from --model_path (a port checkpoint or a reference
+.pth), else from --seed; the run's flags go to
+checkpoint_dir/name/config-test.txt.
 
 With --vis_pred the fitted mesh is re-rendered with the original frame's
 intrinsics into full-frame depth / texture / mask panels (the fused
-rasterizer: the CUDA kernel on a CUDA device). A failure to read the
-original frame skips its panels; a rasterizer build or launch error
-propagates. The panels the JAX package draws with cv2
-(--visualize_{bbox,match,imatch,conf,mesh,gt}) are not ported: asking for
-one raises, as do several devices or processes (configs.refuse_unported).
+rasterizer). A failure to read the original frame skips its panels; a
+rasterizer build or launch error propagates. The panels the JAX package
+draws with cv2 (--visualize_{bbox,match,imatch,conf,mesh,gt}, and the
+keypoint panels of --vis_pred --eval_cub) are not ported: asking for one
+raises, as do several devices or processes (configs.refuse_unported).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ import torch.nn.functional as F
 
 from selfcorr_tpu_torch.configs import Config, refuse_unported
 from selfcorr_tpu_torch.data.loader import BATCH_KEYS, TestLoader
-from selfcorr_tpu_torch.eval.metrics import NocsAccumulator
+from selfcorr_tpu_torch.eval.metrics import NocsAccumulator, map_kp, mask_iou
 from selfcorr_tpu_torch.eval.pose_fit import fit_poses
 from selfcorr_tpu_torch.models.meshnet import (MeshNet, build_mesh_constants,
                                                forward_test)
@@ -33,17 +39,25 @@ from selfcorr_tpu_torch.ops.rasterizer.common import EYE_OFFSET
 from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils.device import resolve_device
 from selfcorr_tpu_torch.utils.logging import write_config_snapshot
-from selfcorr_tpu_torch.utils.png import to_u8, write_png
+from selfcorr_tpu_torch.utils.imageio import to_u8, write_png
 from selfcorr_tpu_torch.utils.weight_convert import load_reference_ckpt
 
 
 def make_test_dataset(cfg: Config):
+    if cfg.dataset_name == "Wild6D":
+        from selfcorr_tpu_torch.data.wild6d import Wild6DTest
+        return Wild6DTest(cfg)
     if cfg.dataset_name == "synthetic":
         from selfcorr_tpu_torch.data.synthetic import SyntheticTest
         return SyntheticTest(cfg, shape=cfg.synthetic_shape)
-    raise NotImplementedError(
-        f"dataset {cfg.dataset_name!r}: only 'synthetic' is ported so far; "
-        f"the Wild6D / NOCS / CUB readers come in a later slice")
+    if cfg.dataset_name == "nocs":
+        from selfcorr_tpu_torch.data.nocs import NOCSTest
+        return NOCSTest(cfg)
+    if cfg.dataset_name == "cub":
+        from selfcorr_tpu_torch.data.cub import CUBTest
+        return CUBTest(cfg)
+    raise ValueError(f"unknown dataset {cfg.dataset_name!r}: Wild6D, "
+                     f"synthetic, nocs or cub")
 
 
 def init_model(cfg: Config, constants) -> MeshNet:
@@ -113,6 +127,7 @@ class Tester:
         dataset = make_test_dataset(cfg)
         loader = TestLoader(dataset, cfg)
         acc = NocsAccumulator(cfg.symmetry_idx) if cfg.eval_nocs else None
+        cub_iou, cub_pck = [], []
         out_dir = cfg.vis_path or os.path.join(self.run_dir, "vis")
         try:
             for bi, batch in enumerate(loader):
@@ -123,6 +138,10 @@ class Tester:
                     for i in np.flatnonzero(valid):
                         acc.add(bbox9[i], batch["rot_gt"][i],
                                 batch["trans_gt"][i], batch["scale_gt"][i])
+                if cfg.eval_cub and "kp" in batch:
+                    ious, pck = self._eval_cub(batch, pred, fit)
+                    cub_iou += ious
+                    cub_pck += pck
                 if cfg.vis_pred:
                     self._write_panels(dataset, batch, pred, fit, out_dir)
                 if (bi + 1) % 10 == 0:
@@ -135,7 +154,54 @@ class Tester:
             results = acc.summary()
             for k in NocsAccumulator.KEYS:
                 print(f"{k}:", results[k])
+        if cfg.eval_cub and cub_iou:
+            pck = np.asarray(cub_pck, np.float64).reshape(-1, 2)
+            results["mIoU"] = float(np.mean(cub_iou))
+            results["kp@0.1"] = float(pck[:, 0].mean())
+            results["kp@0.2"] = float(pck[:, 1].mean())
+            for k in ("mIoU", "kp@0.1", "kp@0.2"):
+                print(f"{k}:", results[k])
         return results
+
+    def fitted_alpha(self, batch, pred, fit) -> torch.Tensor:
+        """(B, S, S) alpha1 of each fitted mesh rendered at img_size under
+        its crop's intrinsics (the fused rasterizer, textures all ones)."""
+        dev = self.device
+        proj = G.project_ndc(fit["verts"],
+                             torch.as_tensor(batch["pp_crop"], device=dev),
+                             torch.as_tensor(batch["foc_crop"], device=dev),
+                             flip_y=True)
+        rast = torch.cat([proj[..., :2], proj[..., 2:] + EYE_OFFSET], -1)
+        fv = rast[:, pred["faces"]]
+        ones = torch.ones_like(fv)
+        return render_fused(fv, ones, ones, self.cfg.img_size)["alpha1"]
+
+    def _eval_cub(self, batch, pred, fit):
+        """([mask IoU of each valid sample], [[PCK@0.1, PCK@0.2] of each
+        transferred keypoint]) of one batch. The mask is the fitted mesh's
+        render (fitted_alpha) above 0.5. CUB has no depth, so every fit
+        takes fit_poses' default pose, as in the JAX package. The keypoints
+        of the batch's first half go to its second half through the match
+        fields; the error is scaled by the crop's padding (1 + 2 * 0.2) /
+        2."""
+        mask_render = (self.fitted_alpha(batch, pred, fit) > 0.5).cpu().numpy()
+        valid = batch["valid"]
+        ious = mask_iou(np.asarray(batch["mask"]), mask_render)
+        cub_iou = [float(v) for v, ok in zip(ious, valid) if ok]
+
+        half = len(valid) // 2
+        kps = np.asarray(batch["kp"], np.float32)
+        match = pred["match"].cpu().numpy()
+        mask = np.asarray(batch["mask"])
+        vis = (kps[..., 2] > 0).astype(np.float32)
+        _, err, _, kp_mask = map_kp(
+            vis[:half], vis[half: 2 * half], kps[:half], kps[half: 2 * half],
+            match[:half], match[half: 2 * half], mask[:half],
+            mask[half: 2 * half])
+        kp_scale = (1 + 2 * 0.2) / 2
+        pck = [[e * kp_scale < 0.1, e * kp_scale < 0.2]
+               for e in err[kp_mask > 0]]
+        return cub_iou, pck
 
     def _write_panels(self, dataset, batch, pred, fit, out_dir):
         os.makedirs(out_dir, exist_ok=True)

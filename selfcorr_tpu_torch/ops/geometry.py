@@ -45,6 +45,28 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, -2)
 
 
+def matrix_to_quat(R: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> WXYZ quaternion with w >= 0
+    (Shepperd: of the four candidates, the one whose diagonal term is
+    largest)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    diag = torch.stack([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
+                        1 - m00 + m11 - m22, 1 - m00 - m11 + m22], -1)
+    cand = torch.stack([
+        torch.stack([diag[..., 0], m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, diag[..., 1], m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, diag[..., 2], m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, diag[..., 3]], -1),
+    ], -2)
+    idx = torch.argmax(diag, -1)
+    q = torch.gather(cand, -2, idx[..., None, None].expand(
+        *idx.shape, 1, 4))[..., 0, :]
+    q = normalize(q, eps=eps)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
 def rigid_transform(verts: torch.Tensor, R: torch.Tensor,
                     t: torch.Tensor) -> torch.Tensor:
     """Row-vector rigid transform: (..., N, 3) @ (..., 3, 3) + (..., 1, 3)."""

@@ -2,8 +2,10 @@
 selfcorr_tpu/train/loop.py Trainer.train):
 
   python -m selfcorr_tpu_torch.train --flagfile config/wild6d/laptop.txt \
-      --dataset_name synthetic --total_iters 6 --batch_log_interval 1 \
+      --dataset_path <Wild6D>/laptop --train_list <list> \
       [--checkpoint_dir log --name exp] [--save_freq 2000] [--device cpu]
+
+The data is Wild6D, NOCS, CUB or the synthetic videos (--dataset_name).
 
 Runs on CUDA unless --device cpu is given; a missing GPU is an error. The
 run's directory is checkpoint_dir/name: config.txt (every flag), the scalar
@@ -41,12 +43,20 @@ from selfcorr_tpu_torch.utils.logging import (log_metrics, make_writer,
 
 
 def make_train_dataset(cfg: Config):
+    if cfg.dataset_name == "Wild6D":
+        from selfcorr_tpu_torch.data.wild6d import Wild6DTrain
+        return Wild6DTrain(cfg, seed=cfg.seed)
     if cfg.dataset_name == "synthetic":
         from selfcorr_tpu_torch.data.synthetic import SyntheticTrain
         return SyntheticTrain(cfg, seed=cfg.seed, shape=cfg.synthetic_shape)
-    raise NotImplementedError(
-        f"dataset {cfg.dataset_name!r}: only 'synthetic' is ported so far; "
-        f"the Wild6D / NOCS / CUB readers come in a later slice")
+    if cfg.dataset_name == "nocs":
+        from selfcorr_tpu_torch.data.nocs import NOCSTrain
+        return NOCSTrain(cfg, seed=cfg.seed)
+    if cfg.dataset_name == "cub":
+        from selfcorr_tpu_torch.data.cub import CUBTrain
+        return CUBTrain(cfg, seed=cfg.seed)
+    raise ValueError(f"unknown dataset {cfg.dataset_name!r}: Wild6D, "
+                     f"synthetic, nocs or cub")
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:

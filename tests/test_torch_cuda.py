@@ -3,8 +3,9 @@ forward and backward in the compact schedule (B1, B2) and the dense-chunk
 schedule (B1', B2'), with and without surface texels, and the DINO
 attention kernel (B3) against their plain PyTorch versions, the predict path
 on the card against the same path on the CPU, one full-width train step
-on the card, and a resume from a checkpoint on the card. They skip without a
-card.
+on the card, a resume from a checkpoint on the card, and the CUB
+evaluation's mask render on a batch read from a Wild6D fixture. They skip
+without a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch; tests/conftest.py imports JAX, so skip it there:
@@ -472,6 +473,36 @@ def test_resume_on_card(cuda, tmp_path):
     print(f"resumed vs straight step: max|diff| {err:.3g}; the step's own "
           f"noise {noise:.3g}")
     assert err == 0.0 if noise == 0.0 else err <= noise
+
+
+def test_fitted_mask_render_on_wild6d_fixture(cuda, tmp_path):
+    """The CUB evaluation's mask render (Tester.fitted_alpha) on a batch
+    read from a Wild6D fixture: through B1 on the card, once, and through
+    the plain version on the CPU from the same fit, alpha1 within 2e-3."""
+    from selfcorr_tpu_torch.data import fixtures as FX
+    train_root, test_root = FX.wild6d_tree(
+        str(tmp_path / "w6d"), n_train_videos=1, n_test_videos=2,
+        frames_per_video=2, test_frames=2, raw_size=96)
+    FX.write_list(test_root, str(tmp_path / "test.txt"))
+    cfg = Config(**dict(SMALL, dataset_name="Wild6D", dframe_eval=1),
+                 test_dataset_path=test_root + "/",
+                 test_list=str(tmp_path / "test.txt"), device="cuda",
+                 checkpoint_dir=str(tmp_path))
+    loader = TestLoader(make_test_dataset(cfg), cfg)
+    batch = next(iter(loader))
+    loader.close()
+    gpu = Tester(cfg)
+    pred, fit = gpu.predict_batch(batch)
+    kernel.reset_launches()
+    got = gpu.fitted_alpha(batch, pred, fit)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["raster_fused_fwd"] == 1
+    cpu = Tester(cfg.replace(device="cpu"), model=copy.deepcopy(gpu.model))
+    ref = cpu.fitted_alpha(batch, {"faces": pred["faces"].cpu()},
+                           {"verts": fit["verts"].cpu()})
+    assert got.shape == ref.shape == (4, 32, 32)
+    assert float(ref.max()) > 0.5
+    assert float((got.cpu() - ref).abs().max()) <= ATOL["alpha1"]
 
 
 @contextlib.contextmanager

@@ -96,10 +96,15 @@ def test_model_path_is_a_later_slice(tmp_path, name):
 
 
 def test_only_synthetic_eval_data_is_ported(tmp_path):
+    """Wild6D, NOCS, CUB and the synthetic set are ported; any other
+    dataset name raises ValueError at both entry points' dataset makers,
+    as in the JAX package."""
     from selfcorr_tpu_torch.configs import Config
     from selfcorr_tpu_torch.eval.tester import make_test_dataset
-    with pytest.raises(NotImplementedError, match="later slice"):
-        make_test_dataset(Config(dataset_name="Wild6D"))
+    from selfcorr_tpu_torch.train.loop import make_train_dataset
+    for make in (make_test_dataset, make_train_dataset):
+        with pytest.raises(ValueError, match="unknown dataset 'kitti'"):
+            make(Config(dataset_name="kitti"))
 
 
 def test_kernel_is_not_built_at_import():
@@ -126,9 +131,11 @@ REFUSED = ([("num_devices", 2, e) for e in (_TRAIN, _EVAL)]
            + [("coordinator_address", "localhost:1234", _TRAIN),
               ("num_processes", 2, _TRAIN), ("process_id", 0, _EVAL),
               ("profile_steps", 5, _TRAIN),
-              ("synthetic_on_device", True, _TRAIN)]
+              ("synthetic_on_device", True, _TRAIN),
+              ("loader_processes", True, _TRAIN)]
            + [(f"visualize_{n}", True, _EVAL)
-              for n in ("bbox", "match", "imatch", "conf", "mesh", "gt")])
+              for n in ("bbox", "match", "imatch", "conf", "mesh", "gt")]
+           + [("vis_pred", True, _EVAL)])
 
 
 def entry(name):
@@ -145,6 +152,8 @@ def test_unported_flag_is_a_later_slice(flag, value, cls, tmp_path):
     cfg = parse_args(["--flagfile", LAPTOP, *TINY,
                       "--checkpoint_dir", str(tmp_path)]).replace(
         **{flag: value})
+    if flag == "vis_pred":      # the keypoint panels of the CUB evaluation
+        cfg = cfg.replace(eval_cub=True)
     with pytest.raises(NotImplementedError, match="later slice"):
         entry(cls)(cfg)
 
@@ -173,3 +182,31 @@ def test_defaults_and_ported_panels_still_construct(tmp_path, capsys):
     assert "logs no images" in capsys.readouterr().out
     tester = entry(_EVAL)(cfg.replace(train=False))
     assert tester.device.type == "cpu"
+
+
+@pytest.mark.parametrize("flagfile,cls", [
+    (f, c) for f in ("config/nocs/laptop.txt", "config/cub/cub.txt")
+    for c in (_TRAIN, _EVAL)])
+def test_nocs_and_cub_flag_files_construct_on_fixtures(flagfile, cls,
+                                                       tmp_path):
+    """The NOCS and CUB flag files build a Trainer and a Tester on the CPU
+    over the port's fixture trees."""
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.data import fixtures as FX
+    root = str(tmp_path / "data")
+    if "nocs" in flagfile:
+        lst = FX.nocs_tree(root)
+    else:
+        lst = FX.cub_tree(root, split="train" if cls == _TRAIN else "test")
+    cfg = parse_args(["--flagfile", os.path.join(ROOT, flagfile),
+                      *TINY[2:], "--checkpoint_dir", str(tmp_path),
+                      "--dataset_path", root, "--train_list", lst,
+                      "--test_dataset_path", root, "--test_list", lst])
+    obj = entry(cls)(cfg if cls == _TRAIN else cfg.replace(train=False))
+    from selfcorr_tpu_torch.eval.tester import make_test_dataset
+    from selfcorr_tpu_torch.train.loop import make_train_dataset
+    make = make_train_dataset if cls == _TRAIN else make_test_dataset
+    assert type(make(obj.cfg)).__name__ == {
+        ("nocs", _TRAIN): "NOCSTrain", ("nocs", _EVAL): "NOCSTest",
+        ("cub", _TRAIN): "CUBTrain", ("cub", _EVAL): "CUBTest"}[
+        (obj.cfg.dataset_name, cls)]

@@ -31,7 +31,7 @@ from selfcorr_tpu_torch.ops import geometry as G
 from selfcorr_tpu_torch.ops import image_ops as I
 from selfcorr_tpu_torch.ops import mesh_ops as MO
 from selfcorr_tpu_torch.ops import umeyama as U
-from selfcorr_tpu_torch.utils import png
+from selfcorr_tpu_torch.utils import imageio
 
 LAPTOP = "config/wild6d/laptop.txt"
 
@@ -209,6 +209,9 @@ def test_png_roundtrip(tmp_path):
     for shape in ((7, 5, 3), (4, 9)):
         img = rng.randint(0, 256, shape).astype(np.uint8)
         path = str(tmp_path / "x.png")
-        png.write_png(path, img)
-        np.testing.assert_array_equal(png.read_png(path), img)
-    assert png.to_u8(np.array([-1.0, 0.5, 2.0])).tolist() == [0, 127, 255]
+        imageio.write_png(path, img)
+        back = imageio.read_unchanged(path)      # 3 channels in BGR order
+        np.testing.assert_array_equal(back[..., ::-1] if img.ndim == 3
+                                      else back, img)
+    assert imageio.to_u8(np.array([-1.0, 0.5, 2.0])).tolist() == [0, 127,
+                                                                  255]

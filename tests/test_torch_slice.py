@@ -22,7 +22,7 @@ from selfcorr_tpu_torch.data.loader import TestLoader
 from selfcorr_tpu_torch.eval.tester import Tester, make_test_dataset
 from selfcorr_tpu_torch.models.meshnet import MeshNet
 from selfcorr_tpu_torch.utils import weight_convert as W
-from selfcorr_tpu_torch.utils.png import read_png
+from selfcorr_tpu_torch.utils.imageio import read_unchanged
 
 SMALL = dict(dataset_name="synthetic", img_size=32, corr_h=8, corr_w=8,
              subdivide=1, batch_size=4, repeat=1, symmetry_idx=0,
@@ -135,7 +135,7 @@ def test_tester_end_to_end_on_cpu(tmp_path):
     assert results["count"] == 4
     files = sorted(os.listdir(vis))
     assert len(files) == 12, files
-    panel = read_png(str(vis / files[0]))
+    panel = read_unchanged(str(vis / files[0]))
     assert panel.shape == (320, 320, 3) and panel.dtype == np.uint8
-    mask = read_png(str(vis / "000_000_mask.png"))
+    mask = read_unchanged(str(vis / "000_000_mask.png"))
     assert mask.max() > 0  # the fitted mesh lands in the frame

@@ -84,36 +84,44 @@ Phases, in order; any failure exits non-zero:
               IoU built by g++ (timed); (a) Wild6D training at the compact
               path's width on 4 x 24 frames of 480 x 480, 3 steps (B1 = B2 =
               3, B3 = 27), the decode ms per file and crop ms per frame, ms
-              per batch of 32 on one thread and through the TrainLoader at
-              4, 8 and 16 threads, and of each part of the reader alone
-              (decode, crop, stack and pack) at 1 and 8 threads, the host's
-              cores and CPU quota, the loop's wait on the loader per step
-              (timed by a TrainLoader subclass patched into the loop), the
-              warm step on the fixture beside phase 9's synthetic one, and
-              train_step while a TrainLoader makes batches beside it: the
-              whole reader at 4 and 8 threads, each part of it alone
-              (decode, crop, stack and pack), the whole reader and the
-              decoding alone with the step's thread pinned to one core and
-              the loader's to the others, the whole reader under a 0.5
-              ms GIL switch interval, and a profile of steps alone and
-              beside the reader (device-busy against wall ms); then 16 steps
-              (B1 = B2 = 16, B3 = 144), whose waits past the batches queued
-              ahead show whether the loader keeps up; (b) the predict entry
-              point with --eval --eval_nocs --vis_pred on the 2 x 6 test
-              frames (six finite NOCS metrics, B1 launched), then a warm
-              Tester.test() on a 2 x 96-frame split (12 full batches of 16):
-              frames/s with and without its set-up, the loop's ms per batch
-              on the loader and after it, beside predict_batch alone, valid
-              frames only; the NOCS accumulation per sample with the native
-              IoU beside scipy's;
+              per batch of 32 on one thread and through the TrainLoader
+              alone (4, 8, 16 threads; 4 and 8 worker processes,
+              --loader_processes), the bytes the process arm moves (the
+              pickled reader each worker receives, a batch's packed items),
+              the host's CPU (effective cores of 8 worker processes), the
+              loop's wait on the loader per step (timed by a TrainLoader
+              subclass patched into the loop, which also times a process
+              pool's start-up), the warm step on the fixture beside phase
+              9's synthetic one, and train_step alone and while a
+              TrainLoader makes batches beside it (8 threads; 4 and 8
+              processes) and beside 4 and 8 processes that only burn CPU,
+              with a profile of steps alone and beside 8 threads and 8
+              processes (device-busy against wall ms); then
+              16 steps with --loader_processes and 16 with threads (B1 = B2
+              = 16, B3 = 144 each): the loop's ms per iteration and its
+              waits past the batches queued ahead; then the trainer's image
+              log, 3 steps with --vis_freq 2 (B1 = 3 + 2, B2 = 3, B3 = 27 +
+              9): the 20 image tags and the mean mesh's OBJ, every B1 launch
+              at B = 2 (forward_vis, S = 256) and B3 launch at (2, 6, 1025,
+              64) held against the plain versions and timed, _log_images
+              timed; (b) the predict entry point with --eval --eval_nocs
+              --vis_pred and every --visualize_* flag on the 2 x 6 test
+              frames (six finite NOCS metrics, B1 twice a frame), every
+              panel of every frame written (the 3D figure when matplotlib
+              is installed), then a warm Tester.test() on a 2 x 96-frame
+              split (12 full batches of 16): frames/s with and without its
+              set-up, the loop's ms per batch on the loader and after it,
+              beside predict_batch alone, valid frames only; the NOCS
+              accumulation per sample with the native IoU beside scipy's;
               (c) NOCS (config/nocs/laptop.txt, use_occ): one step (B1, B2,
               9 B3), then --eval_nocs; (d) CUB (config/cub/cub.txt): one
-              step (B1, B2, 9 B3), then --eval_cub (finite mIoU, kp@0.1,
-              kp@0.2; B1 once for its one batch). Each run's counts are
-              zeroed just before and read just after, each training run's
-              first B1, B2 and B3 inputs and every evaluation B1 launch held
-              against the plain versions. Then the kernel table's JSON line
-              and the result line
+              step (B1, B2, 9 B3), then --eval_cub --vis_pred (finite mIoU,
+              kp@0.1, kp@0.2; B1 once for its one batch; the crop panels of
+              its 8 birds and the keypoint triples of its 4 pairs). Each
+              run's counts are zeroed just before and read just after, each
+              training run's first B1, B2 and B3 inputs and every
+              evaluation B1 launch held against the plain versions. Then
+              the kernel table's JSON line and the result line
 
 Tolerances, B1 (kernel vs plain): alpha 2e-3, depth 1.4e-2 absolute; tex /
 match 3.8e-3 relative to max(1, |plain|), which is absolute for colours in
@@ -163,7 +171,11 @@ import sys
 import time
 
 import numpy as np
-import torch
+
+if __name__ != "__mp_main__":
+    # not in the loader's spawn-started workers, which re-import this file
+    # as __mp_main__ and never touch torch
+    import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(ROOT, "chiprun_out", "chip_smoke")
@@ -357,17 +369,18 @@ def hold(name, *args):
 
 class Capture:
     """Wraps a kernel wrapper of a module while the main path runs, keeping
-    the inputs (cloned) of its first call, or of every call with keep_all;
-    the count stays the wrapper's."""
+    the inputs (cloned) of its first call, or of every call for which
+    select(*args) is true; the count stays the wrapper's."""
 
-    def __init__(self, module, name, keep_all=False):
-        self.module, self.name, self.keep_all = module, name, keep_all
+    def __init__(self, module, name, select=None):
+        self.module, self.name, self.select = module, name, select
         self.fn = getattr(module, name)
         self.calls = []
 
     def __enter__(self):
         def spy(*args):
-            if self.keep_all or not self.calls:
+            if (self.select(*args) if self.select is not None
+                    else not self.calls):
                 self.calls.append(tuple(clone(a) for a in args))
             return self.fn(*args)
         setattr(self.module, self.name, spy)
@@ -375,6 +388,10 @@ class Capture:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+def every(*_):
+    return True
 
 
 def clone(a):
@@ -907,7 +924,7 @@ def slice_phase():
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
 
     run_args = SLICE_ARGS + ["--checkpoint_dir", OUT, "--name", "predict"]
-    with Capture(KR, "raster_fused_fwd_cuda", keep_all=True) as cap:
+    with Capture(KR, "raster_fused_fwd_cuda", every) as cap:
         reset_launches()
         t0 = time.time()
         results = predict.main(["predict"] + run_args)
@@ -926,9 +943,9 @@ def slice_phase():
     vis = os.path.join(OUT, "predict", "vis")
     pngs = sorted(p for p in os.listdir(vis) if p.endswith(".png"))
     print(f"[slice] {len(pngs)} panels in {vis}")
-    if len(pngs) != 36:
-        fail(f"expected 36 panels (12 samples x depth/tex/mask), got "
-             f"{len(pngs)}")
+    if len(pngs) != 48:
+        fail(f"expected 48 panels (12 samples x the frame, depth, tex, "
+             f"mask), got {len(pngs)}")
     if launches["raster_fused_fwd"] == 0:
         fail("the predict path never launched raster_fused_fwd")
     cfg = parse_args(run_args).replace(train=False, device="cuda")
@@ -1129,7 +1146,7 @@ def train_batch(trainer):
     from selfcorr_tpu_torch.models.meshnet import draw_step
     from selfcorr_tpu_torch.train.loop import (make_train_dataset,
                                                step_generator)
-    from selfcorr_tpu_torch.train.step import compress_batch_host
+    from selfcorr_tpu_torch.data.loader import compress_batch_host
     from selfcorr_tpu_torch.data.loader import stack_items
     cfg = trainer.cfg
     ds = make_train_dataset(cfg)
@@ -1650,11 +1667,16 @@ def write_fixtures() -> dict:
 def loading_costs(trainer) -> dict:
     """Host costs of the Wild6D fixture's training data: decode ms per file
     and crop ms per frame (medians over every training frame), ms per batch
-    of 32 on one thread, and with the TrainLoader's thread pool."""
+    of 32 on one thread, and through the TrainLoader alone: its threads at
+    4, 8 and 16, its worker processes (--loader_processes) at 4 and 8; and
+    the bytes the process arm moves between processes: the pickled dataset
+    each worker receives at its start, and what the workers send back for
+    one batch."""
+    import pickle
     from selfcorr_tpu_torch.data.crops import crop_frame
-    from selfcorr_tpu_torch.data.loader import TrainLoader, stack_items
+    from selfcorr_tpu_torch.data.loader import stack_items
     from selfcorr_tpu_torch.train.loop import make_train_dataset
-    from selfcorr_tpu_torch.train.step import compress_batch_host
+    from selfcorr_tpu_torch.data.loader import compress_batch_host
     from selfcorr_tpu_torch.utils import imageio as io
     cfg = trainer.cfg
     ds = make_train_dataset(cfg)
@@ -1685,53 +1707,55 @@ def loading_costs(trainer) -> dict:
                                          for a in ds.sample_plan(step)]))
         seq.append((time.perf_counter() - t0) * 1e3)
     pooled = {}
-    for threads in (4, cfg.num_workers, 16):
-        loader = TrainLoader(ds, cfg.replace(total_iters=8,
-                                             num_workers=threads),
-                             host_transform=compress_batch_host)
-        try:
-            t0 = time.perf_counter()
-            got = sum(1 for _ in loader)
-            pooled[threads] = (time.perf_counter() - t0) * 1e3 / got
-        finally:
-            loader.close()
-    parts = {f"{part}_{n}": loader_alone_ms(cfg, PartReader(cfg, part), n)
-             for part in ("decode", "crop", "pack")
-             for n in (1, cfg.num_workers)}
-    facts = host_facts()
+    for arm, n in LOADER_ARMS + (("threads", 4), ("threads", 16)):
+        pooled[f"{arm}_{n}"] = loader_alone_ms(
+            cfg.replace(loader_processes=arm == "processes"),
+            make_train_dataset(cfg), n)
+    # what a worker receives at its start; a batch's packed items, pickled
+    # and as arrays
+    blob = pickle.dumps((make_train_dataset(cfg), compress_batch_host),
+                        pickle.HIGHEST_PROTOCOL)
+    items = [compress_batch_host(ds.load_item(*a))
+             for a in ds.sample_plan(0)]
+    pickled = sum(len(pickle.dumps(it, pickle.HIGHEST_PROTOCOL))
+                  for it in items)
+    sent_back = sum(np.asarray(v).nbytes for it in items
+                    for v in it.values())
     out = {f"{k}_ms": v for k, v in med.items()}
     out.update(files=len(times["jpeg"]), batch_ms_one_thread=seq,
-               batch_ms_loader_by_threads=pooled,
-               loader_threads=cfg.num_workers,
-               batch_ms_loader_by_part=parts, host=facts)
+               batch_ms_loader=pooled, dataset_bytes_per_worker=len(blob),
+               batch_bytes_from_workers=sent_back,
+               batch_bytes_pickled=pickled)
     print(f"[data] decode ms per file (median of {out['files']} each): JPEG "
           f"{med['jpeg']:.3f}, mask PNG {med['mask_png']:.3f}, depth PNG "
           f"{med['depth_png']:.3f}; crop {med['crop']:.3f} ms per frame; "
           f"a batch of 32 on one thread "
           f"{', '.join(f'{t:.1f}' for t in seq)} ms; through the "
-          f"TrainLoader alone, ms per batch over 8 batches: "
-          + ", ".join(f"{n} threads {t:.1f}" for n, t in pooled.items())
-          + f" (the loop's default {cfg.num_workers}); each part of the "
-          f"reader alone through the TrainLoader, ms per batch: "
-          + ", ".join(f"{k} threads {v:.1f}" for k, v in parts.items())
-          + f"; host {facts}", flush=True)
+          f"TrainLoader alone, ms per batch: "
+          + ", ".join(f"{k} {t:.1f}" for k, t in pooled.items())
+          + f"; the process arm sends each worker {len(blob)} bytes at its "
+          f"start; a batch's packed items are {sent_back} bytes "
+          f"({pickled} pickled)", flush=True)
     return out
 
 
 @contextlib.contextmanager
 def timed_loaders(module, name: str):
-    """Replaces the loader class module.<name> with a subclass that times,
-    per batch, the consumer's wait in next() and the rest of its iteration
-    (the loop's step, or the tester's predict and metrics), and the moment
-    its constructor returned; yields the list of loaders made meanwhile.
-    The loop and the tester themselves keep no timings."""
+    """Replaces the loader class module.<name> with a subclass that times
+    its construction (a process pool's start-up), and, per batch, the
+    consumer's wait in next() and the rest of its iteration (the loop's
+    step, or the tester's predict and metrics), and the moment its
+    constructor returned; yields the list of loaders made meanwhile. The
+    loop and the tester themselves keep no timings."""
     base = getattr(module, name)
     made = []
 
     class Timed(base):
         def __init__(self, *a, **k):
+            t0 = time.perf_counter()
             super().__init__(*a, **k)
             self.built = time.perf_counter()
+            self.startup_s = self.built - t0
             self.waits, self.walls = [], []
             made.append(self)
 
@@ -1751,42 +1775,21 @@ def timed_loaders(module, name: str):
         setattr(module, name, base)
 
 
-class PartReader:
-    """The Wild6D training reader doing one part of its load_item in the
-    loader's threads: 'decode' reads the frame's JPEG, mask PNG and depth
-    PNG and returns an item cropped beforehand; 'crop' crops frames
-    decoded beforehand; 'pack' returns the item cropped beforehand, so only
-    the loader's stacking and packing run. The plan is the reader's."""
-
-    def __init__(self, cfg, part: str):
-        from selfcorr_tpu_torch.train.loop import make_train_dataset
-        self.ds, self.part = make_train_dataset(cfg), part
-        self.sample_plan = self.ds.sample_plan
-        vids = self.ds.videos
-        self.item = self.ds.load_item(0, 0, np.array([1.35, 1.35]))
-        if part == "crop":
-            frames = {(v, f): vids.read_frame(v, f, cfg.use_depth)
-                      for v in range(len(vids))
-                      for f in range(vids.num_frames(v))}
-            vids.read_frame = lambda v, f, use_depth: frames[v, f]
-
-    def load_item(self, vid, fid, scale):
-        if self.part == "crop":
-            return self.ds.load_item(vid, fid, scale)
-        if self.part == "decode":
-            self.ds.videos.read_frame(vid, fid, self.ds.cfg.use_depth)
-        return self.item
+# the TrainLoader arms train_step is timed beside: (arm, threads or worker
+# processes)
+LOADER_ARMS = (("threads", 8), ("processes", 4), ("processes", 8))
 
 
 @contextlib.contextmanager
-def loader_beside(cfg, dataset, threads: int, batches: int):
-    """A TrainLoader of `threads` threads making `batches` batches of
-    `dataset`, its first batch already taken; yields a function that takes
-    (and drops) the next batch, as the loop takes them."""
+def loader_beside(cfg, dataset, workers: int, batches: int):
+    """A TrainLoader of `workers` threads, or worker processes with
+    cfg.loader_processes, making `batches` batches of `dataset`, its first
+    batch already taken; yields a function that takes (and drops) the next
+    batch, as the loop takes them."""
     from selfcorr_tpu_torch.data.loader import TrainLoader
-    from selfcorr_tpu_torch.train.step import compress_batch_host
+    from selfcorr_tpu_torch.data.loader import compress_batch_host
     loader = TrainLoader(dataset, cfg.replace(total_iters=batches,
-                                              num_workers=threads),
+                                              num_workers=workers),
                          host_transform=compress_batch_host)
     it = iter(loader)
     next(it)
@@ -1796,55 +1799,14 @@ def loader_beside(cfg, dataset, threads: int, batches: int):
         loader.close()
 
 
-def host_facts() -> dict:
-    """The host's cores as this process sees them: the count, the affinity
-    set, the cgroup's CPU quota and the first core's hyperthread
-    siblings."""
-    def read(path):
-        try:
-            with open(path) as f:
-                return f.read().strip()
-        except OSError:
-            return None
-    cpus = sorted(os.sched_getaffinity(0))
-    return {"cpu_count": os.cpu_count(), "affinity": cpus,
-            "cgroup_cpu_max": read("/sys/fs/cgroup/cpu.max"),
-            "siblings_of_first": read(
-                f"/sys/devices/system/cpu/cpu{cpus[0]}/topology/"
-                f"thread_siblings_list")}
-
-
-def core_split():
-    """(the step's core, the loader's cores): the first core this process
-    may run on, and every other one but its hyperthread siblings."""
-    cpus = sorted(os.sched_getaffinity(0))
-    sib = host_facts()["siblings_of_first"] or str(cpus[0])
-    near = set()
-    for part in sib.split(","):
-        lo, _, hi = part.partition("-")
-        near.update(range(int(lo), int(hi or lo) + 1))
-    return cpus[0], [c for c in cpus if c not in near]
-
-
-@contextlib.contextmanager
-def pinned(cpus):
-    """The calling thread on `cpus` (threads it starts meanwhile inherit
-    them); its affinity restored after."""
-    old = os.sched_getaffinity(0)
-    os.sched_setaffinity(0, cpus)
-    try:
-        yield
-    finally:
-        os.sched_setaffinity(0, old)
-
-
-def loader_alone_ms(cfg, dataset, threads: int, batches: int = 6) -> float:
-    """ms per batch of a TrainLoader of `threads` threads over `dataset`,
-    nothing else running, its first batch left out."""
+def loader_alone_ms(cfg, dataset, workers: int, batches: int = 6) -> float:
+    """ms per batch of a TrainLoader of `workers` threads (or processes,
+    with cfg.loader_processes) over `dataset`, nothing else running, its
+    first batch left out."""
     from selfcorr_tpu_torch.data.loader import TrainLoader
-    from selfcorr_tpu_torch.train.step import compress_batch_host
+    from selfcorr_tpu_torch.data.loader import compress_batch_host
     loader = TrainLoader(dataset, cfg.replace(total_iters=batches + 1,
-                                              num_workers=threads),
+                                              num_workers=workers),
                          host_transform=compress_batch_host)
     try:
         it = iter(loader)
@@ -1876,44 +1838,37 @@ def step_ms(trainer, take=None, reps: int = 8) -> float:
     return statistics.median(times)
 
 
+@contextlib.contextmanager
+def burners(workers: int):
+    """`workers` processes running pure-Python loops while the block runs:
+    the readers' load on the cores without their memory traffic."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(workers)
+    try:
+        pool.map(_burn, [1000] * workers, chunksize=1)      # all started
+        pool.map_async(_burn, [200_000_000] * workers, chunksize=1)
+        yield
+    finally:
+        pool.terminate()
+        pool.join()
+
+
 def step_beside_loaders(trainer, card: str, reps: int = 8) -> dict:
-    """train_step while loaders work beside it: the whole reader at 4 and 8
-    threads, the reader's parts alone at 8 (PartReader), the whole reader
-    at 8 under a 0.5 ms GIL switch interval (Python's default is 5 ms),
-    the whole reader and the decoding alone at 8 with the step's thread
-    pinned to one core and the loader's threads to the others (its
-    hyperthread siblings left out), and one profile of steps alone and
-    beside the whole reader: device-busy ms against wall ms per step."""
+    """train_step alone and while a TrainLoader makes batches beside it, in
+    each of LOADER_ARMS, and beside 4 and 8 processes that only burn CPU
+    (burners); a profile of steps alone and beside the 8-thread and the
+    8-process loader: device-busy ms against wall ms per step."""
     from selfcorr_tpu_torch.train.loop import make_train_dataset
     from selfcorr_tpu_torch.train.step import train_step
     cfg = trainer.cfg
-    n = cfg.num_workers
     out = {"alone": step_ms(trainer, reps=reps)}
-    for threads in (4, n):
-        with loader_beside(cfg, make_train_dataset(cfg), threads,
-                           reps + 2) as take:
-            out[f"reader_{threads}"] = step_ms(trainer, take, reps)
-    for part in ("decode", "crop", "pack"):
-        with loader_beside(cfg, PartReader(cfg, part), n, reps + 2) as take:
-            out[f"{part}_only_{n}"] = step_ms(trainer, take, reps)
-    step_core, loader_cores = core_split()
-    if loader_cores:
-        for name, ds in (("reader", make_train_dataset(cfg)),
-                         ("decode_only", PartReader(cfg, "decode"))):
-            with contextlib.ExitStack() as stack:
-                with pinned(loader_cores):
-                    take = stack.enter_context(
-                        loader_beside(cfg, ds, n, reps + 2))
-                with pinned([step_core]):
-                    out[f"{name}_{n}_pinned"] = step_ms(trainer, take, reps)
-    switch = sys.getswitchinterval()
-    sys.setswitchinterval(5e-4)
-    try:
-        with loader_beside(cfg, make_train_dataset(cfg), n,
-                           reps + 2) as take:
-            out[f"reader_{n}_switch_0.5ms"] = step_ms(trainer, take, reps)
-    finally:
-        sys.setswitchinterval(switch)
+    for arm, n in LOADER_ARMS:
+        with loader_beside(cfg.replace(loader_processes=arm == "processes"),
+                           make_train_dataset(cfg), n, reps + 2) as take:
+            out[f"{arm}_{n}"] = step_ms(trainer, take, reps)
+    for n in (4, 8):
+        with burners(n):
+            out[f"burners_{n}"] = step_ms(trainer, reps=reps)
     batch, draws = train_batch(trainer)
 
     def step(take=None):
@@ -1924,25 +1879,219 @@ def step_beside_loaders(trainer, card: str, reps: int = 8) -> dict:
 
     prof = {"alone": profile_calls(step, 6, "w6d_train train_step alone",
                                    "w6d_step_alone_profile.txt")}
-    with loader_beside(cfg, make_train_dataset(cfg), n, 8) as take:
-        prof["reader"] = profile_calls(
-            lambda: step(take), 6,
-            f"w6d_train train_step beside a {n}-thread reader",
-            "w6d_step_loader_profile.txt")
+    for arm in ("threads", "processes"):
+        with loader_beside(cfg.replace(loader_processes=arm == "processes"),
+                           make_train_dataset(cfg), 8, 8) as take:
+            prof[arm] = profile_calls(
+                lambda: step(take), 6,
+                f"w6d_train train_step beside 8 loader {arm}",
+                f"w6d_step_{arm}_profile.txt")
     out["profile"] = {k: {"wall_ms": p["wall_ms"],
                           "device_busy_ms": p["device_busy_ms"]}
                       for k, p in prof.items()}
-    print(f"[w6d_train] warm train_step ms (median of {reps}) beside a "
-          f"TrainLoader making batches: " + ", ".join(
+    print(f"[w6d_train] warm train_step ms (median of {reps}) alone and "
+          f"beside a TrainLoader making batches: " + ", ".join(
               f"{k} {v:.2f}" for k, v in out.items() if k != "profile")
-          + f" (torch CPU threads {torch.get_num_threads()}; pinned: the "
-          f"step on core {step_core}, the loader on {loader_cores}); "
-          f"profiled, wall / device busy ms per "
-          f"step: " + ", ".join(
+          + "; profiled, wall / device busy ms per step: " + ", ".join(
               f"{k} {p['wall_ms']:.2f} / {p['device_busy_ms']:.2f}"
               for k, p in out["profile"].items()) + f" on {card}",
           flush=True)
     return out
+
+
+def _burn(n: int) -> float:
+    """Pure-Python work, in a worker process: its own seconds."""
+    t0 = time.perf_counter()
+    x = 0
+    for i in range(n):
+        x += i * i
+    return time.perf_counter() - t0
+
+
+def cpu_capacity(workers: int = 8, n: int = 4_000_000) -> dict:
+    """The CPU this host gives worker processes: the wall time of one
+    process running a pure-Python loop, and of `workers` processes running
+    it at once; effective cores = workers x one / all. Also the cores and
+    the cgroup quota as this process sees them."""
+    import multiprocessing
+
+    def read(path):
+        try:
+            with open(path) as f:
+                return f.read().strip()
+        except OSError:
+            return None
+
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pool.map(_burn, [1000] * workers, chunksize=1)      # all started
+        t0 = time.perf_counter()
+        pool.map(_burn, [n])
+        one = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pool.map(_burn, [n] * workers, chunksize=1)
+        every_s = time.perf_counter() - t0
+    out = {"cpu_count": os.cpu_count(),
+           "affinity": len(os.sched_getaffinity(0)),
+           "cgroup_cpu_max": read("/sys/fs/cgroup/cpu.max"),
+           "one_s": one, "all_s": every_s,
+           "effective_cores": workers * one / every_s}
+    print(f"[data] CPU: {out['cpu_count']} cores, {out['affinity']} in the "
+          f"affinity set, cgroup cpu.max {out['cgroup_cpu_max']}; a "
+          f"pure-Python loop takes {one:.3f} s in one worker process and "
+          f"{every_s:.3f} s in each of {workers} at once: "
+          f"{out['effective_cores']:.2f} effective cores", flush=True)
+    return out
+
+
+VIS_STEPS, VIS_FREQ = 3, 2      # one image log, at step 2
+
+
+class ImageLog:
+    """A writer that forwards its calls and keeps each add_image's tag,
+    shape, dtype and step."""
+
+    def __init__(self, writer):
+        self.writer, self.images = writer, []
+
+    def add_image(self, tag, img, step, **kw):
+        self.images.append((tag, img.shape, str(img.dtype), step))
+        self.writer.add_image(tag, img, step, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.writer, name)
+
+
+def vis_train(tag: str, flagfile: str, data_args, card: str) -> dict:
+    """The training entry point with --vis_freq 2 over 3 steps, launch
+    counts zeroed just before and read just after: B1 once a step and
+    twice in the image log (forward_vis at B = 2), B2 once a step, B3 9
+    times a step and 9 in the log. Every B1 launch at B = 2 and every B3
+    launch at batch 2 held against the plain versions, the first of each
+    timed beside its bound; the image tags (20, with depth) and the mean
+    mesh's OBJ checked; _log_images timed (synchronized)."""
+    from unittest import mock
+    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops.mesh_ops import load_obj
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.train import loop
+
+    def two(*args):
+        return args[0].shape[0] == 2
+
+    run = fresh_run(tag)
+    args = ["--flagfile", flagfile, *data_args, "--total_iters",
+            str(VIS_STEPS), "--vis_freq", str(VIS_FREQ),
+            "--batch_log_interval", "1", "--checkpoint_dir", OUT, "--name",
+            run]
+    writers, log_ms = [], []
+    make_writer, log_images = loop.make_writer, loop.Trainer._log_images
+
+    def logged_writer(run_dir):
+        writers.append(ImageLog(make_writer(run_dir)))
+        return writers[-1]
+
+    def timed_log(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log_images(self, *a)
+        torch.cuda.synchronize()
+        log_ms.append((time.perf_counter() - t0) * 1e3)
+
+    with contextlib.ExitStack() as stack:
+        b1 = stack.enter_context(Capture(KR, "raster_fused_fwd_cuda", two))
+        b3 = stack.enter_context(Capture(A, "flash_attention_cuda", two))
+        stack.enter_context(mock.patch.object(loop, "make_writer",
+                                              logged_writer))
+        stack.enter_context(mock.patch.object(loop.Trainer, "_log_images",
+                                              timed_log))
+        reset_launches()
+        trainer = loop.main(["train"] + args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    drop_checkpoints()
+    logs = VIS_STEPS // VIS_FREQ
+    want = {n: 0 for n in launches}
+    want.update(raster_fused_fwd=VIS_STEPS + 2 * logs,
+                raster_fused_bwd=VIS_STEPS,
+                dino_flash_attn=ATTN_PER_STEP * (VIS_STEPS + logs))
+    if launches != want:
+        fail(f"{tag}: launches {launches}, expected {want}")
+    s = trainer.cfg.img_size
+    images = writers[0].images
+    shapes = {(shape, dtype, step) for _, shape, dtype, step in images}
+    if len(images) != 20 * logs or shapes != {((s, s, 3), "uint8",
+                                               VIS_FREQ)}:
+        fail(f"{tag}: image log {images}")
+    verts, _ = load_obj(os.path.join(OUT, run,
+                                     f"{VIS_FREQ}-iter-mean-mesh.obj"))
+    if verts.shape != tuple(trainer.state.model.mesh.mean_v.shape):
+        fail(f"{tag}: the mean-mesh OBJ holds {verts.shape} vertices")
+    if len(b1.calls) != 2 * logs or len(b3.calls) != ATTN_PER_STEP * logs:
+        fail(f"{tag}: captured {len(b1.calls)} B1 and {len(b3.calls)} B3 "
+             f"launches at batch 2")
+    errs = {}
+    for name, cap in (("raster_fused_fwd", b1), ("dino_flash_attn", b3)):
+        for c in cap.calls:
+            _, err, ok = hold(name, *c)
+            if not ok:
+                fail(f"{tag}: {name} at batch 2 disagrees with its plain "
+                     f"version ({err})")
+            err = max(err.values()) if isinstance(err, dict) else err
+            errs[name] = max(errs.get(name, 0.0), err)
+    costs = {"raster_fused_fwd": raster_costs("raster_fused_fwd",
+                                              *b1.calls[0]),
+             "dino_flash_attn": attn_costs(*b3.calls[0])}
+    consts, q = b1.calls[0][0], b3.calls[0][0]
+    print(f"[{tag}] {VIS_STEPS} steps with --vis_freq {VIS_FREQ}: launches "
+          f"{launches}; {len(images)} image tags at step {VIS_FREQ}, the "
+          f"mean mesh's OBJ; _log_images "
+          f"{', '.join(f'{t:.2f}' for t in log_ms)} ms; B1 at B="
+          f"{consts.shape[0]} S={b1.calls[0][1]} held ({len(b1.calls)} "
+          f"launches, max|err| {errs['raster_fused_fwd']:.3g}): "
+          f"{costs['raster_fused_fwd']['ms']:.4f} ms, bound "
+          f"{costs['raster_fused_fwd']['bound_ms']:.4f}; B3 at "
+          f"{tuple(q.shape)} held ({len(b3.calls)} launches, max|err| "
+          f"{errs['dino_flash_attn']:.3g}): "
+          f"{costs['dino_flash_attn']['ms']:.4f} ms, bound "
+          f"{costs['dino_flash_attn']['bound_ms']:.4f}, SDPA "
+          f"{costs['dino_flash_attn']['library_ms']:.4f} on {card}",
+          flush=True)
+    return {"launches": launches, "log_images_ms": log_ms,
+            "image_tags": sorted({t for t, *_ in images}),
+            "max_abs_err": errs,
+            "costs": {k: {n: c.get(n) for n in ("ms", "plain_ms",
+                                                 "bound_ms", "bound_by",
+                                                 "library_ms")}
+                      for k, c in costs.items()}}
+
+
+def check_panels(tag: str, vis_dir: str, frames: int, suffixes,
+                 pairs: int = 0):
+    """Every one of `frames` frames (named <video>_<frame>) has a file of
+    each suffix in vis_dir, and `pairs` of them the CUB keypoint triple
+    (_1, _2, _2_gt); nothing else is there. Returns the file count."""
+    names = sorted(os.listdir(vis_dir))
+    tags = sorted({n[:7] for n in names})
+    kp = ("_1.png", "_2.png", "_2_gt.png")
+    want = {t + x for t in tags for x in suffixes}
+    triples = [t for t in tags if all(t + x in names for x in kp)]
+    want |= {t + x for t in triples for x in kp}
+    if len(tags) != frames or len(triples) != pairs or set(names) != want:
+        fail(f"{tag}: panels {names}: expected {frames} frames with "
+             f"{suffixes} and {pairs} keypoint triples")
+    print(f"[{tag}] panels: {frames} frames x {len(suffixes)} files "
+          f"{list(suffixes)}, {pairs} keypoint triples", flush=True)
+    return len(names)
+
+
+FRAME_PANELS = ("_img.png", "_bbox.png", "_match.png", "_imatch.png",
+                "_gt.png", "_depth_gt.png", "_depth.png", "_tex.png",
+                "_mask.png", "_conf.png", "_mesh.obj")
+CROP_PANELS = ("_img.png", "_bbox.png", "_match.png", "_imatch.png",
+               "_conf.png", "_depth.png", "_mask.png", "_mesh.obj")
+VISUALIZE = [f"--visualize_{n}" for n in ("bbox", "match", "imatch", "conf",
+                                          "mesh", "gt", "depth", "tex",
+                                          "mask")]
 
 
 def data_train(tag: str, flagfile: str, data_args, steps: int):
@@ -1969,8 +2118,11 @@ def data_train(tag: str, flagfile: str, data_args, steps: int):
         torch.cuda.synchronize()
         launches = read_launches()
     drop_checkpoints()
-    timing = {"wait_ms": [w * 1e3 for w in made[0].waits],
-              "wall_ms": [w * 1e3 for w in made[0].walls]}
+    ld = made[0]
+    timing = {"startup_s": ld.startup_s,
+              "wait_ms": [w * 1e3 for w in ld.waits],
+              "wall_ms": [w * 1e3 for w in ld.walls],
+              "iter_ms": [(w + r) * 1e3 for w, r in zip(ld.waits, ld.walls)]}
     want = {n: steps if n in raster else 0 for n in launches}
     want["dino_flash_attn"] = ATTN_PER_STEP * steps
     print(f"[{tag}] loop.main {steps} steps on the fixture, wall "
@@ -2005,7 +2157,7 @@ def data_eval(tag: str, flagfile: str, data_args, extra, keys):
     args = ["--flagfile", flagfile, *data_args, "--eval", *extra,
             "--repeat", "1", "--dframe_eval", "1", "--checkpoint_dir", OUT,
             "--name", fresh_run(tag)]
-    with Capture(KR, "raster_fused_fwd_cuda", keep_all=True) as cap:
+    with Capture(KR, "raster_fused_fwd_cuda", every) as cap:
         reset_launches()
         t0 = time.time()
         results = predict.main(["predict"] + args)
@@ -2132,6 +2284,7 @@ def data_phase(card: str, synthetic_step_ms: float) -> dict:
         trainer, out["w6d_train_launches"], timing = data_train(
             "w6d_train", w6d, paths["w6d_train"], 3)
         out["loading"] = loading_costs(trainer)
+        out["cpu"] = cpu_capacity()
         out["loader_wait_ms"] = timing["wait_ms"]
         out["step_ms_loading"] = step_beside_loaders(trainer, card)
         out["step_ms_fixture"] = out["step_ms_loading"]["alone"]
@@ -2140,26 +2293,41 @@ def data_phase(card: str, synthetic_step_ms: float) -> dict:
               f"{', '.join(f'{w:.2f}' for w in timing['wait_ms'])} ms (the "
               f"first includes the first batch); warm train_step on the "
               f"fixture {out['step_ms_fixture']:.2f} ms, on synthetic data "
-              f"{synthetic_step_ms:.2f} ms (phase 9) on {card}", flush=True)
+              f"{synthetic_step_ms} ms (phase 9) on {card}", flush=True)
         del trainer
-        # past the batches the loader queued ahead of the first step
-        _, out["w6d_train_long_launches"], timing = data_train(
-            "w6d_train_long", w6d, paths["w6d_train"], LONG_STEPS)
-        out["loader_wait_ms_long"] = timing["wait_ms"]
-        out["step_wall_ms_long"] = timing["wall_ms"]
-        steady = timing["wait_ms"][4:]
-        print(f"[w6d_train_long] loader wait per step, steps 5-{LONG_STEPS}: "
-              f"median {statistics.median(steady):.2f} ms, mean "
-              f"{statistics.mean(steady):.2f} ms, max {max(steady):.2f} ms; "
-              f"the loop's ms per step after the wait "
-              f"{', '.join(f'{w:.1f}' for w in timing['wall_ms'])} on "
-              f"{card}", flush=True)
-        # (b) Wild6D evaluation
+        # 16 steps, past the batches queued ahead of the first, in each arm
+        for tag, extra in (("w6d_train_long", ["--loader_processes"]),
+                           ("w6d_train_long_threads", [])):
+            _, out[f"{tag}_launches"], timing = data_train(
+                tag, w6d, paths["w6d_train"] + extra, LONG_STEPS)
+            out[tag] = timing
+            steady = timing["wait_ms"][4:]
+            print(f"[{tag}] loader start-up {timing['startup_s']:.3f} s; "
+                  f"wait per step, steps 5-{LONG_STEPS}: median "
+                  f"{statistics.median(steady):.2f} ms, max "
+                  f"{max(steady):.2f} ms; the loop's ms per iteration "
+                  f"(the wait and the rest) "
+                  f"{', '.join(f'{w:.1f}' for w in timing['iter_ms'])}, "
+                  f"median of steps 5-{LONG_STEPS} "
+                  f"{statistics.median(timing['iter_ms'][4:]):.2f} on "
+                  f"{card}", flush=True)
+        # the trainer's image log
+        out["w6d_vis"] = vis_train("w6d_vis", w6d, paths["w6d_train"], card)
+        out["w6d_vis_launches"] = out["w6d_vis"]["launches"]
+        # (b) Wild6D evaluation with every panel (3D figure: matplotlib)
+        import importlib.util
+        out["matplotlib"] = importlib.util.find_spec("matplotlib") is not None
+        vis_dir = os.path.join(FIXTURES, "vis_w6d")
         out["w6d_eval"], out["w6d_eval_launches"] = data_eval(
             "w6d_eval", w6d, paths["w6d_test"] + ["--batch_size", "16"],
-            ["--eval_nocs", "--vis_pred"], NOCS_KEYS)
-        if out["w6d_eval_launches"]["raster_fused_fwd"] == 0:
-            fail("w6d_eval: the panels never launched B1")
+            ["--eval_nocs", "--vis_pred", *VISUALIZE, "--vis_path", vis_dir],
+            NOCS_KEYS)
+        if out["w6d_eval_launches"]["raster_fused_fwd"] != 2 * 12:
+            fail("w6d_eval: the render panels did not launch B1 twice a "
+                 "frame")
+        out["w6d_eval_panels"] = check_panels(
+            "w6d_eval", vis_dir, 12,
+            FRAME_PANELS + (("_3d.png",) if out["matplotlib"] else ()))
         out["w6d_eval_rates"] = eval_rates(
             ["--flagfile", w6d, *paths["w6d_rates"], "--batch_size", "16",
              "--eval", "--eval_nocs", "--repeat", "1", "--dframe_eval", "1",
@@ -2176,14 +2344,17 @@ def data_phase(card: str, synthetic_step_ms: float) -> dict:
         cub = "config/cub/cub.txt"
         _, out["cub_train_launches"], _ = data_train("cub_train", cub,
                                                      paths["cub_train"], 1)
+        vis_dir = os.path.join(FIXTURES, "vis_cub")
         out["cub_eval"], out["cub_eval_launches"] = data_eval(
             "cub_eval", cub, paths["cub_test"],
-            ["--eval_cub", "--batch_size", "8"], ("mIoU", "kp@0.1",
-                                                  "kp@0.2"))
+            ["--eval_cub", "--batch_size", "8", "--vis_pred", "--vis_path",
+             vis_dir], ("mIoU", "kp@0.1", "kp@0.2"))
         if out["cub_eval_launches"]["raster_fused_fwd"] != 1:
             fail(f"cub_eval: B1 launched "
                  f"{out['cub_eval_launches']['raster_fused_fwd']} times for "
                  f"one eval batch")
+        out["cub_eval_panels"] = check_panels("cub_eval", vis_dir, 8,
+                                              CROP_PANELS, pairs=4)
     finally:
         shutil.rmtree(FIXTURES, ignore_errors=True)
         drop_checkpoints()
@@ -2207,8 +2378,10 @@ KERNELS = {
 }
 
 
-def main() -> int:
-    t_start = time.time()
+def device_setup():
+    """Require CUDA; print the card's name and power limit and the torch
+    build; work from the repo's root with float32 precision. Returns
+    (the nvidia-smi line, the device name, the device)."""
     phase("device")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a "
@@ -2218,18 +2391,22 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
-
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     os.makedirs(OUT, exist_ok=True)
+    from selfcorr_tpu_torch.utils.device import set_fp32_precision
+    set_fp32_precision()
+    return smi, kind, torch.device("cuda:0")
+
+
+def main() -> int:
+    t_start = time.time()
+    smi, kind, dev = device_setup()
     from selfcorr_tpu_torch.ops import attention as A
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
     from selfcorr_tpu_torch.utils import cuda_build
-    from selfcorr_tpu_torch.utils.device import set_fp32_precision
-    set_fp32_precision()
 
     phase("build")
     t0 = time.time()
@@ -2318,7 +2495,8 @@ def main() -> int:
     phase("data: Wild6D, NOCS and CUB fixtures")
     data = data_phase(smi, steps["train"][0])
     launches.update({p: data[f"{p}_launches"] for p in (
-        "w6d_train", "w6d_train_long", "w6d_eval", "nocs_train",
+        "w6d_train", "w6d_train_long", "w6d_train_long_threads", "w6d_vis",
+        "w6d_eval", "nocs_train",
         "cub_train", "cub_eval")})
     summary = {"card": smi, "build_s": build_s, "resource_usage": usage,
                "fwd_sass_lds": lds,
@@ -2351,6 +2529,10 @@ def main() -> int:
             t = main_costs["train_surface"][name]
             row[f"tex_res_{TEX_RES}"] = {k: t[k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        if name in data["w6d_vis"]["costs"]:      # forward_vis, batch 2
+            row["w6d_vis"] = dict(data["w6d_vis"]["costs"][name],
+                                  max_abs_err=data["w6d_vis"]["max_abs_err"]
+                                  [name])
         rows.append(row)
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s",
           flush=True)

@@ -7,13 +7,14 @@ transforms `v @ R + t`, WXYZ quaternions, NDC intrinsics) so parity tests
 need no transposes.
 
 The port runs the predict path (configs -> data -> MeshNet forward_test
--> RANSAC-Umeyama pose fit -> NOCS metrics, plus the full-frame render
-panels) and the training step (forward_train with every loss, the frozen
-DINO trunk, clipping, the NaN guard, five-group AdamW) behind a trainer
-loop. The three TPU kernels on those paths are hand-written CUDA kernels
-on CUDA tensors and plain PyTorch versions on CPU tensors: the fused
-soft-rasterizer forward (ops/rasterizer/csrc/raster_fwd.cu) and backward
-(csrc/raster_bwd.cu), and the DINO flash attention (ops/csrc/
+-> RANSAC-Umeyama pose fit -> NOCS metrics, plus the --vis_pred panels)
+and the training step (forward_train with every loss, the frozen DINO
+trunk, clipping, the NaN guard, five-group AdamW) behind a trainer loop
+(its data loaded in threads or worker processes, image logs every
+vis_freq steps). The three TPU kernels on those paths are hand-written
+CUDA kernels on CUDA tensors and plain PyTorch versions on CPU tensors:
+the fused soft-rasterizer forward (ops/rasterizer/csrc/raster_fwd.cu) and
+backward (csrc/raster_bwd.cu), and the DINO flash attention (ops/csrc/
 flash_attn.cu).
 
 Layering:
@@ -27,7 +28,8 @@ Layering:
   train/   optimizer, train state + step, trainer loop and entry point
   eval/    pose fitting, exact 3D IoU, NOCS metrics, Tester
   data/    cv2-free crops, synthetic videos, train and test loaders
-  utils/   JAX-parameter import, CUDA build, PNG writer
+  utils/   JAX-parameter import, CUDA build, image files, the panels
+           (vis.py, numpy)
 """
 
 __version__ = "0.1.0"

@@ -8,8 +8,8 @@ parsed and ignored. dino_attn_bf16 selects the trunk's bf16 attention
 (kernel B3 on the card). `device` is the port's own field: entry points run
 on "cuda" unless the caller asks for "cpu". Flags that ask for work the port
 does not do yet (several devices or processes, the profiler trace, batches
-made on the device, the panels drawn with cv2) raise at the entry points
-(refuse_unported) rather than run something else.
+made on the device) raise at the entry points (refuse_unported) rather than
+run something else.
 """
 from __future__ import annotations
 
@@ -156,8 +156,6 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-# the panels the JAX package draws with cv2 (selfcorr_tpu/utils/vis.py)
-CV2_PANELS = ("bbox", "match", "imatch", "conf", "mesh", "gt")
 _MULTI_PROCESS = ("multihost", "coordinator_address", "num_processes",
                   "process_id")
 
@@ -165,9 +163,8 @@ _MULTI_PROCESS = ("multihost", "coordinator_address", "num_processes",
 def refuse_unported(cfg: Config, train: bool) -> None:
     """Raise NotImplementedError if cfg asks the training loop (train) or
     the evaluation for what the port does not do yet: more than one device
-    or process; in training the profiler trace, batches made on the device
-    and loader processes; in evaluation the panels drawn with cv2 (among
-    them the keypoint panels of --vis_pred with --eval_cub)."""
+    or process; in training the profiler trace and batches made on the
+    device."""
     default = Config()
     asked = []
     if cfg.num_devices > 1:
@@ -181,15 +178,6 @@ def refuse_unported(cfg: Config, train: bool) -> None:
         if cfg.synthetic_on_device:
             asked.append("--synthetic_on_device (batches made on the "
                          "device)")
-        if cfg.loader_processes:
-            asked.append("--loader_processes (decoding in worker "
-                         "processes)")
-    else:
-        asked += [f"--visualize_{n} (a panel drawn with cv2)"
-                  for n in CV2_PANELS if getattr(cfg, f"visualize_{n}")]
-        if cfg.vis_pred and cfg.eval_cub:
-            asked.append("--vis_pred with --eval_cub (keypoint panels drawn "
-                         "with cv2)")
     if asked:
         raise NotImplementedError(
             f"{'; '.join(asked)}: not ported yet, this comes in a later "

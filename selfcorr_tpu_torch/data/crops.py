@@ -32,7 +32,7 @@ def scaled_lengths(length, scale, no_stretch: bool):
                     np.int64)
 
 
-def _linear_taps(n_in: int, n_out: int):
+def linear_taps(n_in: int, n_out: int):
     f = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
     f = np.maximum(f, 0.0)
     i0 = np.minimum(np.floor(f).astype(np.int64), n_in - 1)
@@ -49,8 +49,8 @@ def resize(img: np.ndarray, out_size: int, interp: str) -> np.ndarray:
         sy = np.minimum(np.floor(np.arange(out_size) * (1.0 / (out_size / h)))
                         .astype(np.int64), h - 1)
         return img[sy][:, sx]
-    x0, x1, fx = _linear_taps(w, out_size)
-    y0, y1, fy = _linear_taps(h, out_size)
+    x0, x1, fx = linear_taps(w, out_size)
+    y0, y1, fy = linear_taps(h, out_size)
     extra = (None,) * (img.ndim - 2)
     fx = fx[(None, slice(None)) + extra]
     fy = fy[(slice(None), None) + extra]

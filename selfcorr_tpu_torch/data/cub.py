@@ -20,15 +20,35 @@ import os
 
 import numpy as np
 import scipy.io as sio
-import torch
 
 from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.data.crops import (crop_intrinsics, resize,
                                            to_ndc_intrinsics)
-from selfcorr_tpu_torch.ops.geometry import matrix_to_quat
 from selfcorr_tpu_torch.utils.imageio import read_rgb
 
 NO_JITTER = np.zeros(4)
+
+
+def matrix_to_quat(R: np.ndarray) -> np.ndarray:
+    """A float32 rotation matrix (3, 3) -> WXYZ quaternion with w >= 0, in
+    numpy: the reader imports no torch, so a loader's worker process does
+    not pay for it. Bit for bit ops/geometry.matrix_to_quat (Shepperd: of
+    the four candidates, the one whose diagonal term is largest)."""
+    m = np.asarray(R, np.float32)
+    one = np.float32(1.0)
+    diag = np.array([one + m[0, 0] + m[1, 1] + m[2, 2],
+                     one + m[0, 0] - m[1, 1] - m[2, 2],
+                     one - m[0, 0] + m[1, 1] - m[2, 2],
+                     one - m[0, 0] - m[1, 1] + m[2, 2]], np.float32)
+    cand = np.array([
+        [diag[0], m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1]],
+        [m[2, 1] - m[1, 2], diag[1], m[0, 1] + m[1, 0], m[0, 2] + m[2, 0]],
+        [m[0, 2] - m[2, 0], m[0, 1] + m[1, 0], diag[2], m[1, 2] + m[2, 1]],
+        [m[1, 0] - m[0, 1], m[0, 2] + m[2, 0], m[1, 2] + m[2, 1], diag[3]],
+    ], np.float32)
+    q = cand[int(np.argmax(diag))]
+    q = q / np.maximum(np.sqrt(np.sum(q * q)), np.float32(1e-12))
+    return q if q[0] >= 0 else -q
 
 
 def _peturb_bbox(bbox, pf: float, jf: float, draws):
@@ -115,8 +135,7 @@ class _CUBBase:
         vis = kp[:, 2] > 0
         kp[vis, :2] -= 1
 
-        R = torch.from_numpy(np.asarray(sfm.rot, np.float32))
-        quat = matrix_to_quat(R).numpy()
+        quat = matrix_to_quat(sfm.rot)
         s_sfm = float(sfm.scale)
         t_sfm = np.asarray(sfm.trans, np.float64).copy()
 

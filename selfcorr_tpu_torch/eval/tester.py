@@ -10,13 +10,15 @@ The weights come from --model_path (a port checkpoint or a reference
 .pth), else from --seed; the run's flags go to
 checkpoint_dir/name/config-test.txt.
 
-With --vis_pred the fitted mesh is re-rendered with the original frame's
-intrinsics into full-frame depth / texture / mask panels (the fused
-rasterizer). A failure to read the original frame skips its panels; a
-rasterizer build or launch error propagates. The panels the JAX package
-draws with cv2 (--visualize_{bbox,match,imatch,conf,mesh,gt}, and the
-keypoint panels of --vis_pred --eval_cub) are not ported: asking for one
-raises, as do several devices or processes (configs.refuse_unported).
+With --vis_pred each valid sample's panels go to --vis_path (default
+checkpoint_dir/name/vis) as <video>_<frame>_<panel>.png (utils/vis, numpy
+drawing written by Pillow): pasted into the original frame when the
+dataset reads it, with the fitted mesh re-rendered under the frame's
+intrinsics into depth / texture / mask panels (the fused rasterizer); on
+the crop when the frame cannot be read, and for CUB, which also gets its
+keypoint-transfer panels (_1, _2, _2_gt). --visualize_* choose panels;
+none of them means all. A rasterizer build or launch error propagates.
+Several devices or processes raise (configs.refuse_unported).
 """
 from __future__ import annotations
 
@@ -40,7 +42,14 @@ from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils.device import resolve_device
 from selfcorr_tpu_torch.utils.logging import write_config_snapshot
 from selfcorr_tpu_torch.utils.imageio import to_u8, write_png
+from selfcorr_tpu_torch.utils.vis import (draw_kp, panels_on,
+                                          save_visualizations)
 from selfcorr_tpu_torch.utils.weight_convert import load_reference_ckpt
+
+
+def _tag(batch, i) -> str:
+    """<video>_<frame> of sample i: the panels' file-name prefix."""
+    return f"{int(batch['idx'][i]):03d}_{int(batch['frame_idx'][i]):03d}"
 
 
 def make_test_dataset(cfg: Config):
@@ -88,6 +97,7 @@ class Tester:
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
+        self.vis_dir = cfg.vis_path or os.path.join(self.run_dir, "vis")
         write_config_snapshot(self.run_dir, cfg, "config-test.txt")
         self.constants = build_mesh_constants(cfg)
         if model is None:
@@ -128,7 +138,6 @@ class Tester:
         loader = TestLoader(dataset, cfg)
         acc = NocsAccumulator(cfg.symmetry_idx) if cfg.eval_nocs else None
         cub_iou, cub_pck = [], []
-        out_dir = cfg.vis_path or os.path.join(self.run_dir, "vis")
         try:
             for bi, batch in enumerate(loader):
                 pred, fit = self.predict_batch(batch)
@@ -143,7 +152,7 @@ class Tester:
                     cub_iou += ious
                     cub_pck += pck
                 if cfg.vis_pred:
-                    self._write_panels(dataset, batch, pred, fit, out_dir)
+                    self._write_panels(dataset, batch, pred, fit)
                 if (bi + 1) % 10 == 0:
                     print(f"tested batch {bi + 1}/{len(loader)}")
         finally:
@@ -183,7 +192,9 @@ class Tester:
         takes fit_poses' default pose, as in the JAX package. The keypoints
         of the batch's first half go to its second half through the match
         fields; the error is scaled by the crop's padding (1 + 2 * 0.2) /
-        2."""
+        2. With --vis_pred each valid pair's keypoint panels go to
+        vis_dir: <tag>_1 (source), _2 (the transferred keypoints on the
+        target), _2_gt (the target's own), tagged by the source."""
         mask_render = (self.fitted_alpha(batch, pred, fit) > 0.5).cpu().numpy()
         valid = batch["valid"]
         ious = mask_iou(np.asarray(batch["mask"]), mask_render)
@@ -194,42 +205,62 @@ class Tester:
         match = pred["match"].cpu().numpy()
         mask = np.asarray(batch["mask"])
         vis = (kps[..., 2] > 0).astype(np.float32)
-        _, err, _, kp_mask = map_kp(
+        transfer, err, _, kp_mask = map_kp(
             vis[:half], vis[half: 2 * half], kps[:half], kps[half: 2 * half],
             match[:half], match[half: 2 * half], mask[:half],
             mask[half: 2 * half])
+        if self.cfg.vis_pred:
+            os.makedirs(self.vis_dir, exist_ok=True)
+            img = np.asarray(batch["img"], np.float32)
+            for i in range(half):
+                if not (valid[i] and valid[i + half]):
+                    continue
+                panels = draw_kp(img[i], img[i + half], kps[i],
+                                 kps[i + half], transfer[i], kp_mask[i])
+                tag = _tag(batch, i)
+                for suffix, panel in zip(("1", "2", "2_gt"), panels):
+                    write_png(os.path.join(self.vis_dir,
+                                           f"{tag}_{suffix}.png"), panel)
         kp_scale = (1 + 2 * 0.2) / 2
         pck = [[e * kp_scale < 0.1, e * kp_scale < 0.2]
                for e in err[kp_mask > 0]]
         return cub_iou, pck
 
-    def _write_panels(self, dataset, batch, pred, fit, out_dir):
-        os.makedirs(out_dir, exist_ok=True)
-        read_orig = getattr(dataset, "read_original", None)
-        if read_orig is None:
-            return
+    def _write_panels(self, dataset, batch, pred, fit):
+        """Each valid sample's panels (utils/vis.save_visualizations): in
+        its original frame, with the render panels, when the dataset reads
+        one (read_original; not for CUB, as in the JAX package), else on
+        the crop. A frame that cannot be read puts that sample's panels on
+        the crop."""
+        read_orig = (None if self.cfg.eval_cub
+                     else getattr(dataset, "read_original", None))
+        pred_np = {k: v.cpu().numpy() for k, v in pred.items()}
+        fit_np = {k: v.cpu().numpy() for k, v in fit.items()}
         for i in np.flatnonzero(batch["valid"]):
-            vid, fid = int(batch["idx"][i]), int(batch["frame_idx"][i])
-            try:
-                orig = read_orig(vid, fid)
-            except (OSError, KeyError, ValueError) as e:
-                print(f"[vis] original frame {vid}/{fid} unavailable ({e})")
-                continue
-            tag = f"{vid:03d}_{fid:03d}"
-            for name, panel in self._debug_panels(batch, pred, fit, i,
-                                                  orig).items():
-                write_png(os.path.join(out_dir, f"{tag}_{name}.png"), panel)
+            orig = renders = None
+            if read_orig is not None:
+                vid, fid = int(batch["idx"][i]), int(batch["frame_idx"][i])
+                try:
+                    orig = read_orig(vid, fid)
+                except (OSError, KeyError, ValueError) as e:
+                    print(f"[vis] original frame {vid}/{fid} unavailable "
+                          f"({e}); its panels are drawn on the crop")
+                else:
+                    renders = self._debug_panels(batch, pred, fit, i, orig)
+            save_visualizations(self.vis_dir, _tag(batch, i), batch, pred_np,
+                                fit_np, i, self.cfg, orig=orig,
+                                renders=renders)
 
     def _debug_panels(self, batch, pred, fit, i, orig) -> dict:
         """Full-frame depth / texture / mask panels: the FITTED mesh
         re-rendered with the original frame's intrinsics (per-axis NDC),
-        rendered at s = h and resized to (h, w): those that a
-        --visualize_{depth,tex,mask} flag asks for, or all three when none
-        does (the other visualize flags raise at __init__). Returns name ->
-        uint8 (h, w, 3) RGB."""
-        cfg = self.cfg
-        want = [n for n in ("depth", "tex", "mask")
-                if getattr(cfg, f"visualize_{n}")] or ["depth", "tex", "mask"]
+        rendered at s = h and resized to (h, w): those the --visualize_*
+        flags ask for (utils/vis.panels_on). Returns name -> uint8 (h, w, 3)
+        RGB, nothing rendered when none is asked for."""
+        on = panels_on(self.cfg)
+        want = [n for n in ("depth", "tex", "mask") if on(f"visualize_{n}")]
+        if not want:
+            return {}
         h, w = orig["img"].shape[:2]
         dev = self.device
         verts = fit["verts"][i][None]                       # (1, V, 3) posed

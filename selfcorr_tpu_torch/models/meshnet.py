@@ -1,7 +1,7 @@
 """MeshNet composition, the training forward and the eval forward
 (counterpart of selfcorr_tpu/models/meshnet.py: MeshConstants,
 build_mesh_constants, Networks, preprocess, weights_schedule,
-render_products, forward_train, forward_test).
+render_products, forward_train, forward_test, forward_vis).
 
 `MeshNet` holds the trainable nets under `encoder` and the learnable
 canonical shape as `mesh.mean_v`, so its state_dict uses the reference
@@ -362,3 +362,75 @@ def forward_test(model: MeshNet, batch: dict, constants: MeshConstants,
     return dict(pred_v=pred_v, faces=faces, tex=tex, imatch=imatch,
                 match=match_map, match_conf=match_conf, rotation=rotation,
                 translation=translation, scale=scale, pointcorr=pointcorr)
+
+
+@torch.no_grad()
+def forward_vis(model: MeshNet, dino, batch: dict, constants: MeshConstants,
+                cfg: Config, jitter=None, angle=None, cycle_jitter=None,
+                generator=None) -> dict:
+    """The products of the trainer's image panels
+    (selfcorr_tpu/models/meshnet.py:359-437), in eval mode (running BN
+    statistics; the model's mode is restored after): forward_test, the
+    predicted mesh and the mean mesh under the predicted pose rendered
+    (kernel B1 twice on the card), depth_loss's diff, the rotation cycle's
+    matches, and the frozen-DINO pair matches of frames 0 and 1 (kernel B3
+    in the trunk), which must be two frames of one video.
+
+    The draws, as in the JAX package's split of its key: `jitter` (4,)
+    the colour jitter of forward_test and of the cycle's source features,
+    `angle` () the cycle's rotation in degrees, `cycle_jitter` (4,) the
+    jitter of the rotated batch; absent ones come from `generator`."""
+    img, mask = batch["img"], batch["mask"]
+    b = img.shape[0]
+    if jitter is None:
+        jitter = jitter_factors(generator)
+    if angle is None:
+        angle = corr.rotation_angle(generator)
+    if cycle_jitter is None:
+        cycle_jitter = jitter_factors(generator)
+    training = model.training
+    model.eval()
+    try:
+        out = forward_test(model, batch, constants, cfg, jitter=jitter)
+        faces = out["faces"]
+        args = (batch["foc_crop"], batch["pp_crop"], out["rotation"],
+                out["translation"], cfg)
+        vis = dict(out)
+        vis.update(render_products(out["pred_v"], faces, out["tex"], *args))
+        # the canonical mean shape under the predicted pose
+        mean_v = model.mesh.mean_v[None].expand(b, -1, -1)
+        rm = render_products(mean_v, faces, torch.zeros_like(out["tex"]),
+                             *args)
+        vis.update(mean_v_depth=rm["depth_render"],
+                   mean_v_mask=rm["depth_mask"])
+        if cfg.use_depth:
+            vis["depth_diff"] = depth_loss(batch["depth"],
+                                           vis["depth_render"],
+                                           vis["depth_mask"], mask)[1]
+
+        img_feat = model.encoder.encode_img(preprocess(img, jitter))[1]
+
+        def encode_fn(x):
+            return model.encoder.encode_img(preprocess(x, cycle_jitter))[1]
+
+        meshgrid = corr.make_meshgrid(cfg.corr_h, cfg.corr_w,
+                                      device=img.device)
+        _, cycle_match, cycle_gt, cycle_mask = corr.rotation_cycle_loss(
+            angle, img, mask, img_feat, encode_fn, meshgrid, cfg.tau_mesh,
+            cfg.corr_h, cfg.corr_w)
+        vis.update(cycle_match=cycle_match, cycle_match_gt=cycle_gt,
+                   cycle_mask=cycle_mask)
+    finally:
+        model.train(training)
+
+    dino_feat = dino(img[:2])
+    dino_feat = dino_feat.reshape(2, -1, dino_feat.shape[-1])
+    dw, pc = vis["depth_weight"], out["pointcorr"]
+    _, pair = corr.dino_cycle_loss_dense(
+        (dino_feat[0:1], dino_feat[1:2]), (mask[0:1], mask[1:2]),
+        (dw[0:1], dw[1:2]), (pc[0:1], pc[1:2]), meshgrid, cfg.tau_img,
+        cfg.tau_mesh, cfg.corr_h, cfg.corr_w,
+        min(cfg.pretrain_k, (cfg.corr_h // 2) * (cfg.corr_w // 2)))
+    vis.update(pt_pts_src=pair["pts_src"], pt_pts_tgt=pair["pts_tgt"],
+               pt_match=pair["match"], pt_mask=pair["mask"])
+    return vis

@@ -1,5 +1,5 @@
 """Mesh builders and mesh math (counterpart of
-selfcorr_tpu/ops/mesh_ops.py): host-side numpy builders (OBJ loading, prior
+selfcorr_tpu/ops/mesh_ops.py): host-side numpy builders (OBJ loading and saving, prior
 normalization, icosphere, graph Laplacian, flatten-loss quadruples) and the
 device-side face gathers, areas and area-weighted surface sampling."""
 from __future__ import annotations
@@ -60,6 +60,16 @@ def load_obj(path: str):
                 for k in range(1, len(idx) - 1):
                     faces.append([idx[0], idx[k], idx[k + 1]])
     return np.asarray(verts, np.float64), np.asarray(faces, np.int64)
+
+
+def save_obj(path: str, verts: np.ndarray, faces: np.ndarray) -> None:
+    """Vertices (8 decimals) and 1-based triangles as OBJ text, the JAX
+    package's format (load_obj reads it back)."""
+    with open(path, "w") as f:
+        for v in np.asarray(verts):
+            f.write(f"v {v[0]:.8f} {v[1]:.8f} {v[2]:.8f}\n")
+        for face in np.asarray(faces):
+            f.write(f"f {face[0] + 1} {face[1] + 1} {face[2] + 1}\n")
 
 
 def normalize_prior(verts: np.ndarray, init_scale=(1.0, 1.0, 1.0)):

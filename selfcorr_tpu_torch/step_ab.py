@@ -39,7 +39,7 @@ from selfcorr_tpu_torch.data.loader import stack_items
 from selfcorr_tpu_torch.models.meshnet import draw_step
 from selfcorr_tpu_torch.ops.rasterizer import api
 from selfcorr_tpu_torch.train import loop
-from selfcorr_tpu_torch.train.step import compress_batch_host, train_step
+from selfcorr_tpu_torch.train.step import train_step
 if chunk:
     if not hasattr(api, "COMPACT"):
         raise SystemExit(f"{root} has no dense-chunk schedule")
@@ -51,7 +51,9 @@ trainer = loop.main(["train", "--flagfile", "config/wild6d/laptop.txt",
 cfg = trainer.cfg
 ds = loop.make_train_dataset(cfg)
 host = stack_items([ds.load_item(*a) for a in ds.sample_plan(0)])
-batch = trainer.upload(compress_batch_host(host))
+# through loop, which has it in trees from before and after its move
+# from train/step.py to data/loader.py
+batch = trainer.upload(loop.compress_batch_host(host))
 draws = draw_step(loop.step_generator(cfg.seed, 100), cfg,
                   batch["img"].shape[0])
 train_step(trainer.state, batch, draws, cfg)

@@ -13,15 +13,18 @@ log (TensorBoard when it is installed) and ckpt/<step>/ (utils/checkpoint).
 A Trainer over a directory that holds a checkpoint resumes from its latest
 step. Each step draws from a generator seeded by (seed, step), the
 counterpart of the JAX loop's fold_in(PRNGKey(seed + 1), step). Batches come
-from a thread loader, packed to compact dtypes (--compact_transfer) and
-uploaded from pinned memory; as in the JAX package, a resumed process starts
+from the loader (threads, or with --loader_processes spawn-started worker
+processes: run the entry point from a module or a file, data/loader.py),
+packed to compact dtypes (--compact_transfer) and uploaded from pinned
+memory; as in the JAX package, a resumed process starts
 the dataset's sample stream afresh. Every batch_log_interval steps the
 metrics are fetched in one transfer, logged and printed; last_logged_loss
 keeps the total loss of the last log. A checkpoint is written every
-save_freq steps and at the end; its time is left out of the printed rate.
-Image logging is not ported yet: the Trainer says so at its start, and
-flags that ask for other work the port does not do yet raise
-(configs.refuse_unported).
+save_freq steps and at the end; every vis_freq steps the image panels of
+the step's first two frames go to the writer (add_image) and the mean
+mesh to <run>/<step>-iter-mean-mesh.obj (_log_images); the time of both is
+left out of the printed rate. Flags that ask for work the port does not do
+yet raise (configs.refuse_unported).
 """
 from __future__ import annotations
 
@@ -32,14 +35,18 @@ import numpy as np
 import torch
 
 from selfcorr_tpu_torch.configs import Config, refuse_unported
-from selfcorr_tpu_torch.data.loader import BATCH_KEYS, TrainLoader
-from selfcorr_tpu_torch.models.meshnet import build_mesh_constants, draw_step
-from selfcorr_tpu_torch.train.step import (compress_batch_host, init_state,
+from selfcorr_tpu_torch.data.loader import (BATCH_KEYS, TrainLoader,
+                                            compress_batch_host)
+from selfcorr_tpu_torch.models.meshnet import (build_mesh_constants,
+                                               draw_step, forward_vis)
+from selfcorr_tpu_torch.ops.mesh_ops import save_obj
+from selfcorr_tpu_torch.train.step import (decompress_batch, init_state,
                                            train_step)
 from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils.device import resolve_device, set_fp32_precision
 from selfcorr_tpu_torch.utils.logging import (log_metrics, make_writer,
                                               write_config_snapshot)
+from selfcorr_tpu_torch.utils.vis import train_panels
 
 
 def make_train_dataset(cfg: Config):
@@ -67,8 +74,6 @@ def step_generator(seed: int, step: int) -> torch.Generator:
 class Trainer:
     def __init__(self, cfg: Config):
         refuse_unported(cfg, train=True)
-        print(f"[train] this port logs no images yet (--vis_freq "
-              f"{cfg.vis_freq})", flush=True)
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         set_fp32_precision()
@@ -118,7 +123,8 @@ class Trainer:
     def _loop(self, loader, writer, start: int):
         cfg = self.cfg
         t0 = time.time()
-        overhead = 0.0      # save time since the last log, not in the rate
+        overhead = 0.0      # vis and save time since the last log, not in
+                            # the rate
         for i, host in enumerate(loader, 1):
             step_idx = start + i - 1
             batch = self.upload(host)
@@ -139,10 +145,33 @@ class Trainer:
                       f"ms/iter ({b / dt:.1f} imgs/s)", flush=True)
                 t0 = time.time()
                 overhead = 0.0
+            if (step_idx + 1) % cfg.vis_freq == 0:
+                tv = time.time()
+                self._log_images(writer, batch, step_idx + 1)
+                overhead += time.time() - tv
             if (step_idx + 1) % cfg.save_freq == 0:
                 tv = time.time()
                 self.save(step_idx + 1)
                 overhead += time.time() - tv
+
+    def _log_images(self, writer, batch: dict, step: int) -> None:
+        """The image panels (utils/vis.train_panels) of the device batch's
+        first two frames, one video's, from forward_vis with draws seeded
+        by `step`, through writer.add_image; and the mean mesh as
+        <run>/<step>-iter-mean-mesh.obj (selfcorr_tpu/train/loop.py
+        :364-469). A failure raises: the JAX package prints it and trains
+        on (ROADMAP C.10), which would hide a failed kernel launch."""
+        sub = decompress_batch({k: batch[k][:2] for k in BATCH_KEYS})
+        v = forward_vis(self.state.model, self.state.dino, sub,
+                        self.constants, self.cfg,
+                        generator=torch.Generator().manual_seed(step))
+        host = {k: x.cpu().numpy() for k, x in sub.items()}
+        products = {k: x.cpu().numpy() for k, x in v.items()}
+        for tag, panel in train_panels(host, products, self.cfg).items():
+            writer.add_image(tag, panel, step, dataformats="HWC")
+        save_obj(os.path.join(self.run_dir, f"{step}-iter-mean-mesh.obj"),
+                 self.state.model.mesh.mean_v.detach().cpu().numpy(),
+                 self.constants.faces)
 
 
 def main(argv) -> Trainer:

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from selfcorr_tpu_torch.configs import Config
@@ -63,19 +62,6 @@ def init_state(cfg: Config, constants: MeshConstants, device,
     return TrainState(model=model, dino=dino,
                       optimizer=Optimizer(model, cfg),
                       constants=device_constants(constants, device))
-
-
-def compress_batch_host(batch: dict) -> dict:
-    """Pack a host batch into compact dtypes for upload: uint8 img, mask
-    and occ, uint16 depth in millimetres rounded to nearest."""
-    out = dict(batch)
-    out["img"] = np.clip(np.asarray(batch["img"]) * 255.0 + 0.5,
-                         0, 255).astype(np.uint8)
-    out["mask"] = (np.asarray(batch["mask"]) > 0).astype(np.uint8)
-    out["occ"] = (np.asarray(batch["occ"]) > 0).astype(np.uint8)
-    out["depth"] = np.clip(np.asarray(batch["depth"]) + 0.5,
-                           0, 65535).astype(np.uint16)
-    return out
 
 
 def decompress_batch(batch: dict) -> dict:

@@ -30,7 +30,8 @@ from selfcorr_tpu_torch.train import loop
 from selfcorr_tpu_torch.train.loop import (Trainer, make_train_dataset,
                                            step_generator)
 from selfcorr_tpu_torch.train.optim import Optimizer
-from selfcorr_tpu_torch.train.step import compress_batch_host, train_step
+from selfcorr_tpu_torch.data.loader import compress_batch_host
+from selfcorr_tpu_torch.train.step import train_step
 from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils import logging as L
 

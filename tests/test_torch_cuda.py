@@ -3,9 +3,10 @@ forward and backward in the compact schedule (B1, B2) and the dense-chunk
 schedule (B1', B2'), with and without surface texels, and the DINO
 attention kernel (B3) against their plain PyTorch versions, the predict path
 on the card against the same path on the CPU, one full-width train step
-on the card, a resume from a checkpoint on the card, and the CUB
-evaluation's mask render on a batch read from a Wild6D fixture. They skip
-without a card.
+on the card, a resume from a checkpoint on the card, the CUB
+evaluation's mask render on a batch read from a Wild6D fixture, and the
+trainer's image-log forward (forward_vis) on the card against the CPU.
+They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
 that has only PyTorch; tests/conftest.py imports JAX, so skip it there:
@@ -119,7 +120,7 @@ def test_predict_on_card_matches_cpu(cuda, tmp_path):
     assert kernel.LAUNCHES["raster_fused_fwd"] == 2 * results["count"]
     assert all(np.isfinite(results[k]) for k in ("iou@25", "iou@50",
                                                  "5deg2cm", "10deg5cm"))
-    assert len(os.listdir(vis)) == 3 * results["count"]
+    assert len(os.listdir(vis)) == 4 * results["count"]   # frame + 3 renders
 
     loader = TestLoader(make_test_dataset(cfg), cfg)
     batch = next(iter(loader))
@@ -519,3 +520,44 @@ def deterministic():
     finally:
         torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
         torch.backends.cudnn.deterministic = saved[2]
+
+
+def test_forward_vis_on_card_matches_cpu(cuda):
+    """The trainer's image-log forward on the card (B1 twice at B = 2, B3
+    in the bf16 trunk) against the same forward on the CPU (the plain
+    versions), same weights, batch and draws: every product within 1e-3.
+    The CPU forward takes the card's trunk features: the DINO pair panels
+    pick mutual-argmax matches, which one bf16 rounding of B3 against its
+    plain version (held in the B3 tests) may flip."""
+    from selfcorr_tpu_torch.models.meshnet import (MeshNet,
+                                                   build_mesh_constants,
+                                                   forward_vis)
+    from selfcorr_tpu_torch.models.vit import DinoViTS8
+    cfg = Config(**{**SMALL, "batch_size": 2, "pretrain_k": 8,
+                    "device": "cuda"})
+    constants = build_mesh_constants(cfg)
+    torch.manual_seed(0)
+    model, dino = MeshNet(cfg, constants), DinoViTS8(img_size=32).eval()
+    loader = TestLoader(make_test_dataset(cfg), cfg)
+    batch = {k: torch.tensor(v) for k, v in next(iter(loader)).items()
+             if k in ("img", "mask", "depth", "occ", "pp_crop", "foc_crop")}
+    loader.close()
+    draws = dict(jitter=torch.tensor([1.1, 0.9, 1.05, 0.02]),
+                 angle=torch.tensor(37.0),
+                 cycle_jitter=torch.tensor([0.95, 1.1, 0.9, -0.03]))
+    dino_gpu = copy.deepcopy(dino).to(cuda)
+    batch_gpu = {k: v.to(cuda) for k, v in batch.items()}
+    kernel.reset_launches()
+    A.reset_launches()
+    gpu = forward_vis(copy.deepcopy(model).to(cuda), dino_gpu, batch_gpu,
+                      constants, cfg, **draws)
+    torch.cuda.synchronize()
+    assert kernel.LAUNCHES["raster_fused_fwd"] == 2
+    assert A.LAUNCHES["dino_flash_attn"] == 9
+    with torch.no_grad():
+        feats = dino_gpu(batch_gpu["img"][:2]).cpu()
+    cpu = forward_vis(model, lambda img: feats, batch, constants, cfg,
+                      **draws)
+    for k, want in cpu.items():
+        torch.testing.assert_close(gpu[k].cpu(), want, atol=1e-3, rtol=0,
+                                   msg=k)

@@ -8,6 +8,7 @@ repeats cv2's arithmetic in another order); the predict path's outputs
 within 1e-3, as tests/test_torch_slice.py holds them; the six NOCS metrics
 equal. Trees are written at raw 96 (NOCS 48 x 64), crops at img 32.
 """
+import importlib.util
 import os
 import sys
 
@@ -355,7 +356,7 @@ def test_predict_on_wild6d_fixture_matches_jax(jax_predict):
 
 def test_tester_end_to_end_on_wild6d_fixture(w6d, tmp_path):
     """The predict entry point on the fixture, on the CPU: six finite NOCS
-    metrics over every test frame, and the panels of each."""
+    metrics over every test frame, and every panel of each."""
     from selfcorr_tpu_torch import predict
     args = ["predict", "--flagfile", os.path.join(ROOT,
                                                   "config/wild6d/laptop.txt")]
@@ -367,7 +368,13 @@ def test_tester_end_to_end_on_wild6d_fixture(w6d, tmp_path):
     assert results["count"] == 6
     for k in NOCS_KEYS:
         assert np.isfinite(results[k]) and 0.0 <= results[k] <= 1.0, k
-    assert len(os.listdir(tmp_path / "exp" / "vis")) == 18
+    # every panel of each frame: the frame, box, match, imatch, GT box and
+    # depth, the three renders, confidence, mesh, and the 3D figure (when
+    # matplotlib is installed)
+    names = os.listdir(tmp_path / "exp" / "vis")
+    assert len({n[:7] for n in names}) == 6
+    per_frame = 11 + (importlib.util.find_spec("matplotlib") is not None)
+    assert len(names) == 6 * per_frame, sorted(names)
 
 
 def test_tester_end_to_end_on_nocs_fixture(tmp_path):

@@ -5,10 +5,12 @@ The import check is static (an AST scan): the test interpreter imports JAX
 at start-up, so a runtime sys.modules check could not tell."""
 import ast
 import glob
+import importlib.util
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -131,11 +133,7 @@ REFUSED = ([("num_devices", 2, e) for e in (_TRAIN, _EVAL)]
            + [("coordinator_address", "localhost:1234", _TRAIN),
               ("num_processes", 2, _TRAIN), ("process_id", 0, _EVAL),
               ("profile_steps", 5, _TRAIN),
-              ("synthetic_on_device", True, _TRAIN),
-              ("loader_processes", True, _TRAIN)]
-           + [(f"visualize_{n}", True, _EVAL)
-              for n in ("bbox", "match", "imatch", "conf", "mesh", "gt")]
-           + [("vis_pred", True, _EVAL)])
+              ("synthetic_on_device", True, _TRAIN)])
 
 
 def entry(name):
@@ -152,10 +150,64 @@ def test_unported_flag_is_a_later_slice(flag, value, cls, tmp_path):
     cfg = parse_args(["--flagfile", LAPTOP, *TINY,
                       "--checkpoint_dir", str(tmp_path)]).replace(
         **{flag: value})
-    if flag == "vis_pred":      # the keypoint panels of the CUB evaluation
-        cfg = cfg.replace(eval_cub=True)
     with pytest.raises(NotImplementedError, match="later slice"):
         entry(cls)(cfg)
+
+
+# the flags that refused until their modules landed, and the files each
+# makes an evaluation write (<video>_<frame><suffix>)
+PANELS = {"bbox": ("_bbox.png",), "match": ("_match.png",),
+          "imatch": ("_imatch.png",), "conf": ("_conf.png",),
+          "mesh": ("_mesh.obj",), "gt": ("_gt.png", "_depth_gt.png")}
+PORTED = (["loader_processes"] + [f"visualize_{n}" for n in PANELS]
+          + ["vis_pred"])
+
+
+@pytest.mark.parametrize("flag", PORTED)
+def test_ported_flag_does_its_work(flag, tmp_path):
+    """Each flag that refused until its module landed builds its Trainer or
+    Tester on the CPU and does its work: --loader_processes trains a step
+    from worker processes; each --visualize_* writes its panel for every
+    evaluated frame (the frame itself besides, and nothing else);
+    --vis_pred with --eval_cub writes the keypoint panels."""
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.data import fixtures as FX
+    args = ["--flagfile", LAPTOP, *TINY, "--checkpoint_dir", str(tmp_path),
+            "--num_workers", "2"]
+    if flag == "loader_processes":
+        trainer = entry(_TRAIN)(parse_args(
+            args + ["--loader_processes", "--total_iters", "1",
+                    "--batch_log_interval", "1"]))
+        trainer.train()
+        assert trainer.state.step == 1
+        assert all(np.isfinite(v) for v in trainer.logged[0][1].values())
+        return
+    vis = tmp_path / "vis"
+    args += ["--vis_pred", "--eval", "--batch_size", "2", "--repeat", "1",
+             "--ransac_iters", "8", "--pose_fit_max_points", "512",
+             "--vis_path", str(vis)]
+    if flag == "vis_pred":
+        root = str(tmp_path / "cub" / "cub")
+        lst = FX.cub_tree(root, per_class=2, split="test")
+        cfg = parse_args(args + ["--flagfile", os.path.join(
+            ROOT, "config/cub/cub.txt"), *TINY[2:], "--eval_cub",
+            "--test_dataset_path", root, "--test_list", lst,
+            "--dframe_eval", "1", "--batch_size", "4"])
+        results = entry(_EVAL)(cfg.replace(train=False)).test()
+        assert np.isfinite(results["mIoU"])
+        names = os.listdir(vis)
+        for suffix in ("_1.png", "_2.png", "_2_gt.png"):
+            assert sum(n.endswith(suffix) for n in names) == 2, names
+        return
+    cfg = parse_args(args + [f"--{flag}", "--eval_nocs", "--dframe_eval",
+                             "10"])
+    entry(_EVAL)(cfg.replace(train=False)).test()
+    names = sorted(os.listdir(vis))
+    want = ("_img.png",) + PANELS[flag[len("visualize_"):]]
+    if flag == "visualize_gt" and importlib.util.find_spec("matplotlib"):
+        want += ("_3d.png",)
+    assert names == sorted(f"{t}{x}" for t in ("000_000", "001_000")
+                           for x in want)
 
 
 @pytest.mark.parametrize("flagfile", sorted(
@@ -171,15 +223,16 @@ def test_config_flag_files_ask_for_nothing_unported(flagfile):
 def test_defaults_and_ported_panels_still_construct(tmp_path, capsys):
     """The defaults with --vis_pred --visualize_{mask,tex,depth} (the
     predict path's panels) build a Trainer and a Tester on the CPU; the
-    Trainer says that it logs no images."""
+    Trainer logs images every --vis_freq steps, and no longer says that it
+    does not."""
     from selfcorr_tpu_torch.configs import parse_args
     cfg = parse_args(["--flagfile", LAPTOP, *TINY, "--vis_pred",
                       "--visualize_mask", "--visualize_tex",
                       "--visualize_depth", "--checkpoint_dir",
                       str(tmp_path)])
     trainer = entry(_TRAIN)(cfg)
-    assert trainer.state.step == 0
-    assert "logs no images" in capsys.readouterr().out
+    assert trainer.state.step == 0 and trainer.cfg.vis_freq == 1000
+    assert "logs no images" not in capsys.readouterr().out
     tester = entry(_EVAL)(cfg.replace(train=False))
     assert tester.device.type == "cpu"
 

@@ -124,7 +124,8 @@ def test_predict_batch_matches_jax(tmp_path):
 
 def test_tester_end_to_end_on_cpu(tmp_path):
     """predict path with the render panels, on the CPU: six finite NOCS
-    metrics, and three full-frame panels per valid sample."""
+    metrics, and per valid sample the frame and its three full-frame render
+    panels."""
     vis = tmp_path / "vis"
     cfg = Config(device="cpu", checkpoint_dir=str(tmp_path), name="e2e",
                  vis_pred=True, visualize_mask=True, visualize_tex=True,
@@ -134,7 +135,7 @@ def test_tester_end_to_end_on_cpu(tmp_path):
         assert np.isfinite(results[k]) and 0.0 <= results[k] <= 1.0, k
     assert results["count"] == 4
     files = sorted(os.listdir(vis))
-    assert len(files) == 12, files
+    assert len(files) == 16, files
     panel = read_unchanged(str(vis / files[0]))
     assert panel.shape == (320, 320, 3) and panel.dtype == np.uint8
     mask = read_unchanged(str(vis / "000_000_mask.png"))

@@ -120,8 +120,30 @@ Phases, in order; any failure exits non-zero:
               its 8 birds and the keypoint triples of its 4 pairs). Each
               run's counts are zeroed just before and read just after, each
               training run's first B1, B2 and B3 inputs and every
-              evaluation B1 launch held against the plain versions. Then
-              the kernel table's JSON line and the result line
+              evaluation B1 launch held against the plain versions
+ 13. data parallel (selfcorr_tpu_torch/parallel) at the compact path's
+              width: (i) the train entry point with --num_processes 1
+              --process_id 0 --coordinator_address 127.0.0.1:<free port>,
+              3 steps through an NCCL group of one (B1 = B2 = 3, B3 = 27,
+              every all_mean_ in it); in a new group of one, one step
+              through it against one without it from one state, batch and
+              draws (bit for bit where two runs of the step are), the warm
+              step with and without it in turns, all_mean_ alone over the
+              gradients and BatchNorm statistics, a step's peak device
+              memory; (ii) two ranks on cuda:0 over gloo (NCCL takes one
+              rank a GPU), each a Trainer at batch 4 x 4 (the global 32):
+              under the deterministic algorithms one two-rank step against
+              the composite of the two single-rank steps on the ranks' rows
+              (mean of gradients, aux losses and BatchNorm statistics, the
+              clip, one AdamW step), the ranks' states equal; per rank its
+              launches (B1 = B2 = 1, B3 = 9), its first B1, B2, B3 inputs
+              held against the plain versions, its peak device memory and
+              warm two-rank steps (gloo on one card, not a data-parallel
+              rate); (iii) phase 12's Wild6D test split evaluated by two
+              ranks on cuda:0 over gloo (8 rows each of the batch of 16)
+              and by one: the six NOCS metrics equal. Then the fixtures
+              are removed, and the kernel table's JSON line and the result
+              line printed
 
 Tolerances, B1 (kernel vs plain): alpha 2e-3, depth 1.4e-2 absolute; tex /
 match 3.8e-3 relative to max(1, |plain|), which is absolute for colours in
@@ -1323,12 +1345,12 @@ def deterministic():
         torch.backends.cudnn.deterministic = saved[2]
 
 
-def stepped(state, batch, draws, cfg) -> dict:
-    """One train step from a copy of `state`: the copy's tensors and the
-    step's metrics."""
+def stepped(state, batch, draws, cfg, group=None) -> dict:
+    """One train step from a copy of `state` (through the process group
+    `group`, if given): the copy's tensors and the step's metrics."""
     from selfcorr_tpu_torch.train.step import train_step
     st = copy.deepcopy(state)
-    m = train_step(st, batch, draws, cfg)
+    m = train_step(st, batch, draws, cfg, group)
     torch.cuda.synchronize()
     return {**state_tensors(st),
             **{f"metric.{k}": v.reshape(1) for k, v in m.items()}}
@@ -2275,90 +2297,443 @@ def build_native() -> float:
 
 
 def data_phase(card: str, synthetic_step_ms: float) -> dict:
-    """Phase 12 (a)-(d) on fixtures written here and removed at the end."""
+    """Phase 12 (a)-(d) on fixtures written here (main removes them after
+    phase 13, which reads the Wild6D test split too); their paths under
+    "paths"."""
     out = {"probe": image_probe(), "native_build_s": build_native()}
-    try:
-        paths = write_fixtures()
-        w6d = "config/wild6d/laptop.txt"
-        # (a) Wild6D training, the compact path's width
-        trainer, out["w6d_train_launches"], timing = data_train(
-            "w6d_train", w6d, paths["w6d_train"], 3)
-        out["loading"] = loading_costs(trainer)
-        out["cpu"] = cpu_capacity()
-        out["loader_wait_ms"] = timing["wait_ms"]
-        out["step_ms_loading"] = step_beside_loaders(trainer, card)
-        out["step_ms_fixture"] = out["step_ms_loading"]["alone"]
-        out["step_ms_synthetic"] = synthetic_step_ms
-        print(f"[w6d_train] loader wait per step "
-              f"{', '.join(f'{w:.2f}' for w in timing['wait_ms'])} ms (the "
-              f"first includes the first batch); warm train_step on the "
-              f"fixture {out['step_ms_fixture']:.2f} ms, on synthetic data "
-              f"{synthetic_step_ms} ms (phase 9) on {card}", flush=True)
-        del trainer
-        # 16 steps, past the batches queued ahead of the first, in each arm
-        for tag, extra in (("w6d_train_long", ["--loader_processes"]),
-                           ("w6d_train_long_threads", [])):
-            _, out[f"{tag}_launches"], timing = data_train(
-                tag, w6d, paths["w6d_train"] + extra, LONG_STEPS)
-            out[tag] = timing
-            steady = timing["wait_ms"][4:]
-            print(f"[{tag}] loader start-up {timing['startup_s']:.3f} s; "
-                  f"wait per step, steps 5-{LONG_STEPS}: median "
-                  f"{statistics.median(steady):.2f} ms, max "
-                  f"{max(steady):.2f} ms; the loop's ms per iteration "
-                  f"(the wait and the rest) "
-                  f"{', '.join(f'{w:.1f}' for w in timing['iter_ms'])}, "
-                  f"median of steps 5-{LONG_STEPS} "
-                  f"{statistics.median(timing['iter_ms'][4:]):.2f} on "
-                  f"{card}", flush=True)
-        # the trainer's image log
-        out["w6d_vis"] = vis_train("w6d_vis", w6d, paths["w6d_train"], card)
-        out["w6d_vis_launches"] = out["w6d_vis"]["launches"]
-        # (b) Wild6D evaluation with every panel (3D figure: matplotlib)
-        import importlib.util
-        out["matplotlib"] = importlib.util.find_spec("matplotlib") is not None
-        vis_dir = os.path.join(FIXTURES, "vis_w6d")
-        out["w6d_eval"], out["w6d_eval_launches"] = data_eval(
-            "w6d_eval", w6d, paths["w6d_test"] + ["--batch_size", "16"],
-            ["--eval_nocs", "--vis_pred", *VISUALIZE, "--vis_path", vis_dir],
-            NOCS_KEYS)
-        if out["w6d_eval_launches"]["raster_fused_fwd"] != 2 * 12:
-            fail("w6d_eval: the render panels did not launch B1 twice a "
-                 "frame")
-        out["w6d_eval_panels"] = check_panels(
-            "w6d_eval", vis_dir, 12,
-            FRAME_PANELS + (("_3d.png",) if out["matplotlib"] else ()))
-        out["w6d_eval_rates"] = eval_rates(
-            ["--flagfile", w6d, *paths["w6d_rates"], "--batch_size", "16",
-             "--eval", "--eval_nocs", "--repeat", "1", "--dframe_eval", "1",
-             "--checkpoint_dir", OUT, "--name", fresh_run("w6d_rates")],
-            card)
-        # (c) NOCS
-        nocs = "config/nocs/laptop.txt"
-        _, out["nocs_train_launches"], _ = data_train("nocs_train", nocs,
-                                                      paths["nocs"], 1)
-        out["nocs_eval"], _ = data_eval("nocs_eval", nocs, paths["nocs"],
-                                        ["--eval_nocs", "--batch_size",
-                                         "16"], NOCS_KEYS)
-        # (d) CUB
-        cub = "config/cub/cub.txt"
-        _, out["cub_train_launches"], _ = data_train("cub_train", cub,
-                                                     paths["cub_train"], 1)
-        vis_dir = os.path.join(FIXTURES, "vis_cub")
-        out["cub_eval"], out["cub_eval_launches"] = data_eval(
-            "cub_eval", cub, paths["cub_test"],
-            ["--eval_cub", "--batch_size", "8", "--vis_pred", "--vis_path",
-             vis_dir], ("mIoU", "kp@0.1", "kp@0.2"))
-        if out["cub_eval_launches"]["raster_fused_fwd"] != 1:
-            fail(f"cub_eval: B1 launched "
-                 f"{out['cub_eval_launches']['raster_fused_fwd']} times for "
-                 f"one eval batch")
-        out["cub_eval_panels"] = check_panels("cub_eval", vis_dir, 8,
-                                              CROP_PANELS, pairs=4)
-    finally:
-        shutil.rmtree(FIXTURES, ignore_errors=True)
-        drop_checkpoints()
+    paths = write_fixtures()
+    w6d = "config/wild6d/laptop.txt"
+    # (a) Wild6D training, the compact path's width
+    trainer, out["w6d_train_launches"], timing = data_train(
+        "w6d_train", w6d, paths["w6d_train"], 3)
+    out["loading"] = loading_costs(trainer)
+    out["cpu"] = cpu_capacity()
+    out["loader_wait_ms"] = timing["wait_ms"]
+    out["step_ms_loading"] = step_beside_loaders(trainer, card)
+    out["step_ms_fixture"] = out["step_ms_loading"]["alone"]
+    out["step_ms_synthetic"] = synthetic_step_ms
+    print(f"[w6d_train] loader wait per step "
+          f"{', '.join(f'{w:.2f}' for w in timing['wait_ms'])} ms (the "
+          f"first includes the first batch); warm train_step on the "
+          f"fixture {out['step_ms_fixture']:.2f} ms, on synthetic data "
+          f"{synthetic_step_ms} ms (phase 9) on {card}", flush=True)
+    del trainer
+    # 16 steps, past the batches queued ahead of the first, in each arm
+    for tag, extra in (("w6d_train_long", ["--loader_processes"]),
+                       ("w6d_train_long_threads", [])):
+        _, out[f"{tag}_launches"], timing = data_train(
+            tag, w6d, paths["w6d_train"] + extra, LONG_STEPS)
+        out[tag] = timing
+        steady = timing["wait_ms"][4:]
+        print(f"[{tag}] loader start-up {timing['startup_s']:.3f} s; "
+              f"wait per step, steps 5-{LONG_STEPS}: median "
+              f"{statistics.median(steady):.2f} ms, max "
+              f"{max(steady):.2f} ms; the loop's ms per iteration "
+              f"(the wait and the rest) "
+              f"{', '.join(f'{w:.1f}' for w in timing['iter_ms'])}, "
+              f"median of steps 5-{LONG_STEPS} "
+              f"{statistics.median(timing['iter_ms'][4:]):.2f} on "
+              f"{card}", flush=True)
+    # the trainer's image log
+    out["w6d_vis"] = vis_train("w6d_vis", w6d, paths["w6d_train"], card)
+    out["w6d_vis_launches"] = out["w6d_vis"]["launches"]
+    # (b) Wild6D evaluation with every panel (3D figure: matplotlib)
+    import importlib.util
+    out["matplotlib"] = importlib.util.find_spec("matplotlib") is not None
+    vis_dir = os.path.join(FIXTURES, "vis_w6d")
+    out["w6d_eval"], out["w6d_eval_launches"] = data_eval(
+        "w6d_eval", w6d, paths["w6d_test"] + ["--batch_size", "16"],
+        ["--eval_nocs", "--vis_pred", *VISUALIZE, "--vis_path", vis_dir],
+        NOCS_KEYS)
+    if out["w6d_eval_launches"]["raster_fused_fwd"] != 2 * 12:
+        fail("w6d_eval: the render panels did not launch B1 twice a "
+             "frame")
+    out["w6d_eval_panels"] = check_panels(
+        "w6d_eval", vis_dir, 12,
+        FRAME_PANELS + (("_3d.png",) if out["matplotlib"] else ()))
+    out["w6d_eval_rates"] = eval_rates(
+        ["--flagfile", w6d, *paths["w6d_rates"], "--batch_size", "16",
+         "--eval", "--eval_nocs", "--repeat", "1", "--dframe_eval", "1",
+         "--checkpoint_dir", OUT, "--name", fresh_run("w6d_rates")],
+        card)
+    # (c) NOCS
+    nocs = "config/nocs/laptop.txt"
+    _, out["nocs_train_launches"], _ = data_train("nocs_train", nocs,
+                                                  paths["nocs"], 1)
+    out["nocs_eval"], _ = data_eval("nocs_eval", nocs, paths["nocs"],
+                                    ["--eval_nocs", "--batch_size",
+                                     "16"], NOCS_KEYS)
+    # (d) CUB
+    cub = "config/cub/cub.txt"
+    _, out["cub_train_launches"], _ = data_train("cub_train", cub,
+                                                 paths["cub_train"], 1)
+    vis_dir = os.path.join(FIXTURES, "vis_cub")
+    out["cub_eval"], out["cub_eval_launches"] = data_eval(
+        "cub_eval", cub, paths["cub_test"],
+        ["--eval_cub", "--batch_size", "8", "--vis_pred", "--vis_path",
+         vis_dir], ("mIoU", "kp@0.1", "kp@0.2"))
+    if out["cub_eval_launches"]["raster_fused_fwd"] != 1:
+        fail(f"cub_eval: B1 launched "
+             f"{out['cub_eval_launches']['raster_fused_fwd']} times for "
+             f"one eval batch")
+    out["cub_eval_panels"] = check_panels("cub_eval", vis_dir, 8,
+                                          CROP_PANELS, pairs=4)
+    out["paths"] = paths
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: data parallel
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_WORK = os.path.join(ROOT, ".work", "dp")   # rank files, removed after
+
+
+def dp_want(steps: int) -> dict:
+    return {"raster_fused_fwd": steps, "raster_fused_bwd": steps,
+            "raster_fused_fwd_chunk": 0, "raster_fused_bwd_chunk": 0,
+            "dino_flash_attn": ATTN_PER_STEP * steps}
+
+
+def dp_world_one(card: str) -> dict:
+    """(i) The train entry point with --num_processes 1 --process_id 0
+    --coordinator_address: 3 steps through an NCCL group of one (every
+    all_mean_ of the run seen in it); then, in a new group of one, one step
+    through it against one without it from one state, batch and draws (bit
+    for bit where two runs of that step from one state are), the warm
+    step with and without it in turns, all_mean_ alone, and the peak
+    device memory of a step."""
+    import torch.distributed as dist
+    from selfcorr_tpu_torch import parallel as P
+    from selfcorr_tpu_torch.train import loop
+    from selfcorr_tpu_torch.train import step as ST
+    steps = 3
+    args = TRAIN_ARGS + ["--total_iters", str(steps), "--num_processes", "1",
+                         "--process_id", "0", "--coordinator_address",
+                         f"127.0.0.1:{P.free_port()}", "--checkpoint_dir",
+                         OUT, "--name", fresh_run("dp_world1")]
+    seen = []
+    real = ST.all_mean_
+
+    def spy(tensors, group=None):
+        seen.append((dist.get_backend(group), dist.get_world_size(group)))
+        return real(tensors, group)
+    ST.all_mean_ = spy
+    try:
+        reset_launches()
+        t0 = time.time()
+        trainer = loop.main(["train"] + args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        ST.all_mean_ = real
+    drop_checkpoints()
+    print(f"[dp_world1] loop.main {steps} steps through an NCCL group of "
+          f"one, wall {time.time() - t0:.2f} s; kernel launches {launches}; "
+          f"all_mean_ ran in {seen}", flush=True)
+    if launches != dp_want(steps):
+        fail(f"dp_world1: launches {launches}, expected {dp_want(steps)}")
+    if seen != [("nccl", 1)] * steps or dist.is_initialized():
+        fail(f"dp_world1: all_mean_ ran in {seen} (expected an NCCL group "
+             f"of one each step), group left initialised: "
+             f"{dist.is_initialized()}")
+    bad = [(st, k, v) for st, vals in trainer.logged for k, v in vals.items()
+           if not math.isfinite(v)]
+    if len(trainer.logged) != steps or bad:
+        fail(f"dp_world1: logged {len(trainer.logged)} of {steps} steps; "
+             f"non-finite metrics: {bad}")
+
+    cfg, state = trainer.cfg, trainer.state
+    batch, draws = train_batch(trainer)
+    P.init_distributed(0, 1, f"127.0.0.1:{P.free_port()}", "cuda")
+    try:
+        group = dist.group.WORLD
+        with deterministic():
+            noise = max_diff(stepped(state, batch, draws, cfg),
+                             stepped(state, batch, draws, cfg))
+            err = max_diff(stepped(state, batch, draws, cfg, group),
+                           stepped(state, batch, draws, cfg))
+        print(f"[dp_world1] one step through the group vs without it, one "
+              f"state, batch and draws: max|diff| {err:.3g} over every "
+              f"parameter, buffer, moment and metric (two runs without it: "
+              f"{noise:.3g}; deterministic algorithms)", flush=True)
+        if not (err == 0.0 if noise == 0.0 else err <= noise):
+            fail(f"dp_world1: the step through the group is {err:.3g} from "
+                 f"the step without it, beyond the step's noise {noise:.3g}")
+        times = {"group": [], "none": []}
+        for i in range(10):      # in turns: none, group, group, none, ...
+            which = "group" if i % 4 in (1, 2) else "none"
+            torch.cuda.synchronize()
+            t0 = time.time()
+            ST.train_step(state, batch, draws, cfg,
+                          group if which == "group" else None)
+            torch.cuda.synchronize()
+            times[which].append((time.time() - t0) * 1e3)
+        grads = [p.grad.clone() for p in state.model.parameters()]
+        stats = [b.clone() for b in ST.running_stats(state.model)]
+        mean_ms = time_ms(lambda: P.all_mean_(grads + stats, group), reps=10)
+        torch.cuda.reset_peak_memory_stats()
+        ST.train_step(state, batch, draws, cfg, group)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    n_floats = sum(t.numel() for t in grads + stats)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    print(f"[dp_world1] warm train_step at batch 32: through the NCCL group "
+          f"of one median {med['group']:.2f} ms "
+          f"({', '.join(f'{t:.1f}' for t in times['group'])}), without it "
+          f"{med['none']:.2f} ms "
+          f"({', '.join(f'{t:.1f}' for t in times['none'])}); all_mean_ "
+          f"alone over {n_floats} floats (gradients and BatchNorm "
+          f"statistics, {4 * n_floats} bytes) {mean_ms:.3f} ms; peak device "
+          f"memory of a step {peak} bytes on {card}", flush=True)
+    return {"launches": launches, "parity_max_diff": err,
+            "step_noise": noise, "step_ms_group": med["group"],
+            "step_ms_none": med["none"], "step_ms_all": times,
+            "all_mean_ms": mean_ms, "all_mean_floats": n_floats,
+            "peak_bytes": peak}
+
+
+def dp_step_rank(rank, work: str):
+    """(ii), in each of the ranks on cuda:0 over gloo: a Trainer of the
+    rank (batch 4 x 4: its 16 rows of the 32 that the two-shard plan of
+    step 0 draws, its own draws); under the deterministic algorithms, two
+    single-rank steps on those rows (their difference: the step's noise;
+    the first's gradients before the clip, BatchNorm statistics and aux
+    losses to work/single<r>.pt), then the two-rank step, its launches
+    counted and its first B1, B2 and B3 inputs held against the plain
+    versions (its state to work/dp<r>.pt); warm two-rank steps timed; peak
+    device memory. Rank 0 then holds its state against the composite of
+    the single-rank steps (their mean, the clip and one AdamW step from the
+    initial state) and against rank 1's."""
+    global torch
+    import torch
+    import torch.distributed as dist
+    from selfcorr_tpu_torch import parallel as P
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.data.loader import (compress_batch_host,
+                                                stack_items)
+    from selfcorr_tpu_torch.models.meshnet import draw_step
+    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
+    from selfcorr_tpu_torch.train import loop
+    from selfcorr_tpu_torch.train import step as ST
+    r = rank.rank
+    cfg = parse_args(TRAIN_ARGS + [
+        "--batch_size", "4", "--repeat", "4", "--num_devices",
+        str(DP_RANKS), "--checkpoint_dir", os.path.join(work, "run")])
+    trainer = loop.Trainer(cfg, rank)
+    ds = loop.make_train_dataset(cfg, DP_RANKS)
+    plan = ds.sample_plan(0)
+    lo, hi = P.process_row_range(r, DP_RANKS, len(plan))
+    batch = trainer.upload(compress_batch_host(stack_items(
+        [ds.load_item(*a) for a in plan[lo:hi]])))
+    draws = draw_step(loop.step_generator(cfg.seed, 0, r), cfg, hi - lo)
+    state = trainer.state
+    init = copy.deepcopy(state)
+    with deterministic():
+        noise = max_diff(stepped(state, batch, draws, cfg),
+                         stepped(state, batch, draws, cfg))
+        st = copy.deepcopy(state)
+        grads = {}
+        guard = ST.clip_and_guard
+
+        def keep_then_clip(model):
+            grads.update({n: p.grad.clone()
+                          for n, p in model.named_parameters()})
+            return guard(model)
+        ST.clip_and_guard = keep_then_clip
+        try:
+            m = ST.train_step(st, batch, draws, cfg)
+        finally:
+            ST.clip_and_guard = guard
+        torch.save({"grads": grads, "metrics": m,
+                    "stats": {n: b for n, b in st.model.named_buffers()}},
+                   os.path.join(work, f"single{r}.pt"))
+        del st
+        st = copy.deepcopy(state)
+        with contextlib.ExitStack() as stack:
+            caps = {n: stack.enter_context(Capture(KR, f"{n}_cuda"))
+                    for n in ("raster_fused_fwd", "raster_fused_bwd")}
+            caps["dino_flash_attn"] = stack.enter_context(
+                Capture(A, "flash_attention_cuda"))
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            m = ST.train_step(st, batch, draws, cfg, rank.group)
+            torch.cuda.synchronize()
+            launches = read_launches()
+            peak = torch.cuda.max_memory_allocated()
+    dp = {**state_tensors(st),
+          **{f"metric.{k}": v.reshape(1) for k, v in m.items()}}
+    torch.save(dp, os.path.join(work, f"dp{r}.pt"))
+    errs = {}
+    for name, cap in caps.items():
+        _, err, ok = hold(name, *cap.calls[0])
+        errs[name] = err if isinstance(err, float) else max(err.values())
+        if not ok:
+            raise RuntimeError(f"rank {r}: {name} disagrees with its plain "
+                               f"version at the two-rank step's inputs "
+                               f"({err})")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ST.train_step(st, batch, draws, cfg, rank.group)
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+    out = {"rank": r, "rows": [lo, hi], "launches": launches,
+           "peak_bytes": peak, "step_ms": times, "max_abs_err": errs,
+           "step_noise": noise, "metrics": {k: float(v)
+                                            for k, v in m.items()}}
+    dist.barrier()
+    if r == 0:
+        single = [torch.load(os.path.join(work, f"single{i}.pt"),
+                             map_location="cuda:0")
+                  for i in range(DP_RANKS)]
+        st = init
+        model = st.model
+        with torch.no_grad():
+            for n, b in model.named_buffers():
+                if n.endswith(("running_mean", "running_var")):
+                    b.copy_(sum(s["stats"][n] for s in single) / DP_RANKS)
+                else:
+                    b.copy_(single[0]["stats"][n])
+        for n, p in model.named_parameters():
+            p.grad = sum(s["grads"][n] for s in single) / DP_RANKS
+        ST.clip_and_guard(model)
+        st.optimizer.step(st.step)
+        st.step += 1
+        comp = state_tensors(st)
+        metrics = {k: sum(s["metrics"][k] for s in single) / DP_RANKS
+                   for k in single[0]["metrics"]
+                   if not k.startswith("grad_") and k != "bad_grad"}
+        other = torch.load(os.path.join(work, "dp1.pt"),
+                           map_location="cuda:0")
+        out["composite_max_diff"] = max_diff(
+            {k: dp[k] for k in comp}, comp)
+        out["aux_vs_composite_max_diff"] = max(
+            abs(float(dp[f"metric.{k}"]) - float(v))
+            for k, v in metrics.items())
+        out["ranks_max_diff"] = max_diff(dp, other)
+    with open(os.path.join(work, f"rank{r}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_two_ranks_on_one_card(card: str) -> dict:
+    """(ii) Two ranks on cuda:0 over gloo (NCCL takes one rank a GPU)."""
+    from selfcorr_tpu_torch import parallel as P
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    os.makedirs(DP_WORK)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    P.run_ranks(dp_step_rank, P.Layout(DP_RANKS, 0, ("cuda:0",) * DP_RANKS,
+                                       backend="gloo"), DP_WORK)
+    wall = time.time() - t0
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(DP_WORK, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    r0 = ranks[0]
+    for rk in ranks:
+        print(f"[dp_gloo] rank {rk['rank']} (rows {rk['rows']}, batch 4 x 4 "
+              f"of the global 32): kernel launches {rk['launches']}; max"
+              f"|kernel - plain| at its step's inputs {rk['max_abs_err']}; "
+              f"peak device memory of its step {rk['peak_bytes']} bytes; "
+              f"warm two-rank step (gloo, both ranks on one card, not a "
+              f"data-parallel rate) "
+              f"{', '.join(f'{t:.1f}' for t in rk['step_ms'])} ms on "
+              f"{card}", flush=True)
+    print(f"[dp_gloo] two-rank step vs the composite of the single-rank "
+          f"steps (mean, clip, AdamW): max|diff| "
+          f"{r0['composite_max_diff']:.3g} over every parameter, buffer "
+          f"and moment, aux losses {r0['aux_vs_composite_max_diff']:.3g}; "
+          f"rank 1 vs rank 0 {r0['ranks_max_diff']:.3g}; a single-rank "
+          f"step's own noise {[rk['step_noise'] for rk in ranks]} "
+          f"(deterministic algorithms); {wall:.1f} s with the ranks' "
+          f"start", flush=True)
+    noise = max(rk["step_noise"] for rk in ranks)
+    bad = [rk["rank"] for rk in ranks if rk["launches"] != dp_want(1)]
+    if bad:
+        fail(f"dp_gloo: ranks {bad} launched {[ranks[i]['launches'] for i in bad]}, "
+             f"expected {dp_want(1)} each")
+    for key in ("composite_max_diff", "aux_vs_composite_max_diff"):
+        if not (r0[key] == 0.0 if noise == 0.0 else r0[key] <= noise):
+            fail(f"dp_gloo: {key} {r0[key]:.3g}, beyond the step's noise "
+                 f"{noise:.3g}")
+    if r0["ranks_max_diff"] != 0.0:
+        fail(f"dp_gloo: the ranks' states differ after the step by "
+             f"{r0['ranks_max_diff']:.3g}")
+    return {"ranks": ranks, "wall_s": wall}
+
+
+def dp_eval_rank(rank, args, out: str):
+    """(iii), in each rank: the Tester over the ranks' split of each
+    batch; its metrics and launches to `out`<r>.json."""
+    global torch
+    import torch
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.eval.tester import Tester
+    from selfcorr_tpu_torch.utils.device import set_fp32_precision
+    set_fp32_precision()
+    cfg = parse_args(args).replace(train=False)
+    with deterministic():
+        reset_launches()
+        results = Tester(cfg, rank=rank).test()
+        launches = read_launches()
+    with open(f"{out}{rank.rank}.json", "w") as f:
+        json.dump({"results": results, "launches": launches}, f)
+
+
+def dp_eval(paths, phase12: dict) -> dict:
+    """(iii) The Wild6D fixture's test split (2 x 6 frames, one batch of
+    16, its tail padded) on two ranks on cuda:0 over gloo, 8 rows each,
+    against one rank: the six NOCS metrics equal."""
+    from selfcorr_tpu_torch import parallel as P
+    from selfcorr_tpu_torch import predict
+    args = ["--flagfile", "config/wild6d/laptop.txt", *paths["w6d_test"],
+            "--eval", "--eval_nocs", "--batch_size", "16", "--repeat", "1",
+            "--dframe_eval", "1", "--checkpoint_dir", OUT, "--name",
+            fresh_run("dp_eval")]
+    with deterministic():
+        one = predict.main(["predict"] + args)
+    os.makedirs(DP_WORK, exist_ok=True)
+    out = os.path.join(DP_WORK, "eval")
+    torch.cuda.empty_cache()
+    P.run_ranks(dp_eval_rank, P.Layout(DP_RANKS, 0, ("cuda:0",) * DP_RANKS,
+                                       backend="gloo"),
+                args + ["--num_devices", str(DP_RANKS)], out)
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(f"{out}{r}.json") as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(DP_WORK, ignore_errors=True)
+    two = {k: ranks[0]["results"][k] for k in NOCS_KEYS}
+    print(f"[dp_eval] Wild6D fixture, 12 frames in one batch of 16: one "
+          f"rank {' '.join(f'{k} {one[k]}' for k in NOCS_KEYS)}; two ranks "
+          f"(8 rows each, gloo on one card) "
+          f"{' '.join(f'{k} {two[k]}' for k in NOCS_KEYS)}; phase 12's "
+          f"run with the panels "
+          f"{' '.join(f'{k} {phase12[k]}' for k in NOCS_KEYS)}; launches "
+          f"per rank {[rk['launches'] for rk in ranks]}", flush=True)
+    if any(rk["results"] != ranks[0]["results"] for rk in ranks):
+        fail("dp_eval: the ranks returned different metrics")
+    if two != {k: one[k] for k in NOCS_KEYS}:
+        fail(f"dp_eval: two ranks {two}, one rank "
+             f"{ {k: one[k] for k in NOCS_KEYS} }")
+    return {"one_rank": one, "two_ranks": ranks[0]["results"],
+            "launches": [rk["launches"] for rk in ranks]}
+
+
+def dp_phase(card: str, paths, phase12_eval: dict) -> dict:
+    """Phase 13 (i)-(iii)."""
+    out = {"world1": dp_world_one(card)}
+    out["gloo"] = dp_two_ranks_on_one_card(card)
+    out["eval"] = dp_eval(paths, phase12_eval)
+    return out
+
 
 _CSRC = "selfcorr_tpu_torch/ops/rasterizer/csrc/"
 _PALLAS = "selfcorr_tpu/ops/rasterizer/pallas_raster.py"
@@ -2492,12 +2867,24 @@ def main() -> int:
     captured["train_surface"] = with_chunks(captured["train_surface"])
     main_costs = {p: report_main_path(p, c) for p, c in captured.items()}
 
-    phase("data: Wild6D, NOCS and CUB fixtures")
-    data = data_phase(smi, steps["train"][0])
+    try:
+        phase("data: Wild6D, NOCS and CUB fixtures")
+        data = data_phase(smi, steps["train"][0])
+        phase("data parallel")
+        dp = dp_phase(smi, data.pop("paths"), data["w6d_eval"])
+    finally:
+        shutil.rmtree(FIXTURES, ignore_errors=True)
+        shutil.rmtree(DP_WORK, ignore_errors=True)
+        drop_checkpoints()
     launches.update({p: data[f"{p}_launches"] for p in (
         "w6d_train", "w6d_train_long", "w6d_train_long_threads", "w6d_vis",
         "w6d_eval", "nocs_train",
         "cub_train", "cub_eval")})
+    launches["dp_world1"] = dp["world1"]["launches"]
+    launches.update({f"dp_gloo_rank{rk['rank']}": rk["launches"]
+                     for rk in dp["gloo"]["ranks"]})
+    launches.update({f"dp_eval_rank{r}": n
+                     for r, n in enumerate(dp["eval"]["launches"])})
     summary = {"card": smi, "build_s": build_s, "resource_usage": usage,
                "fwd_sass_lds": lds,
                "predict_ms_per_batch": per_batch * 1e3,
@@ -2511,7 +2898,7 @@ def main() -> int:
                "train_imgs_per_s": {p: s[1] for p, s in steps.items()},
                "train_profile": {p: s[2] for p, s in steps.items()},
                "train_step_parity": parity, "train_paths": main_costs,
-               "checkpoint": ckpt_res, "data": data}
+               "checkpoint": ckpt_res, "data": data, "data_parallel": dp}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     rows = []
@@ -2533,6 +2920,9 @@ def main() -> int:
             row["w6d_vis"] = dict(data["w6d_vis"]["costs"][name],
                                   max_abs_err=data["w6d_vis"]["max_abs_err"]
                                   [name])
+        if name in dp["gloo"]["ranks"][0]["max_abs_err"]:
+            row["dp_gloo_max_abs_err"] = [
+                rk["max_abs_err"][name] for rk in dp["gloo"]["ranks"]]
         rows.append(row)
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s",
           flush=True)

@@ -7,9 +7,10 @@ package (use_pallas, dino_flash, dino_pad_once, steps_per_dispatch, ...) are
 parsed and ignored. dino_attn_bf16 selects the trunk's bf16 attention
 (kernel B3 on the card). `device` is the port's own field: entry points run
 on "cuda" unless the caller asks for "cpu". Flags that ask for work the port
-does not do yet (several devices or processes, the profiler trace, batches
-made on the device) raise at the entry points (refuse_unported) rather than
-run something else.
+does not do yet (the profiler trace, batches made on the device) raise at
+the entry points (refuse_unported) rather than run something else; a set of
+device and process flags that does not hold together raises there too
+(check_parallel_flags).
 """
 from __future__ import annotations
 
@@ -156,22 +157,14 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-_MULTI_PROCESS = ("multihost", "coordinator_address", "num_processes",
-                  "process_id")
+_MULTI_PROCESS = ("coordinator_address", "num_processes", "process_id")
 
 
 def refuse_unported(cfg: Config, train: bool) -> None:
-    """Raise NotImplementedError if cfg asks the training loop (train) or
-    the evaluation for what the port does not do yet: more than one device
-    or process; in training the profiler trace and batches made on the
-    device."""
-    default = Config()
+    """Raise NotImplementedError if cfg asks the training loop (train) for
+    what the port does not do yet: the profiler trace and batches made on
+    the device. The evaluation runs every flag it reads."""
     asked = []
-    if cfg.num_devices > 1:
-        asked.append(f"--num_devices {cfg.num_devices} (data parallel over "
-                     f"several GPUs)")
-    asked += [f"--{n} (several processes)" for n in _MULTI_PROCESS
-              if getattr(cfg, n) != getattr(default, n)]
     if train:
         if cfg.profile_steps > 0:
             asked.append("--profile_steps (a profiler trace of the loop)")
@@ -181,7 +174,36 @@ def refuse_unported(cfg: Config, train: bool) -> None:
     if asked:
         raise NotImplementedError(
             f"{'; '.join(asked)}: not ported yet, this comes in a later "
-            f"slice; the port runs one process on one device")
+            f"slice")
+
+
+def check_parallel_flags(cfg: Config) -> None:
+    """Raise ValueError if the device and process flags do not hold
+    together (parallel.layout reads them): --num_devices N is the global
+    device count, at least 1; --coordinator_address, --num_processes P and
+    --process_id i come all three or none, with 0 <= i < P and N a multiple
+    of P (each process starts N / P ranks)."""
+    if cfg.num_devices < 1:
+        raise ValueError(f"--num_devices {cfg.num_devices}: the global "
+                         f"device count is at least 1")
+    given = {"coordinator_address": cfg.coordinator_address != "",
+             "num_processes": cfg.num_processes > 0,
+             "process_id": cfg.process_id >= 0}
+    if any(given.values()) and not all(given.values()):
+        raise ValueError(
+            f"the multi-process flags come together: "
+            f"{', '.join('--' + n for n in _MULTI_PROCESS)}; missing "
+            f"{', '.join('--' + n for n, v in given.items() if not v)}")
+    if not cfg.num_processes:
+        return
+    if not cfg.process_id < cfg.num_processes:
+        raise ValueError(f"--process_id {cfg.process_id} out of range for "
+                         f"--num_processes {cfg.num_processes}")
+    if cfg.num_devices % cfg.num_processes:
+        raise ValueError(
+            f"--num_devices {cfg.num_devices} (the global device count) is "
+            f"not a multiple of --num_processes {cfg.num_processes}: every "
+            f"process starts as many ranks")
 
 
 _TUPLE_FIELDS = {"init_scale": 3, "rotation_offset": 6, "base_rot": 9}

@@ -185,20 +185,24 @@ class _CUBBase:
 
 
 class CUBTrain(_CUBBase):
-    def __init__(self, cfg: Config, seed: int = 0):
+    def __init__(self, cfg: Config, seed: int = 0, num_shards: int = 1):
         super().__init__(cfg, "train", seed)
+        self.num_shards = num_shards
 
     def sample_plan(self, step: int):
-        """[(vid, fid, box jitter draws (4,))], video-major, frame-minor."""
+        """[(vid, fid, box jitter draws (4,))], shard-major, video-major,
+        frame-minor."""
         cfg = self.cfg
         plan = []
-        for vid in self.rng.randint(0, len(self.class_groups),
-                                    size=cfg.batch_size):
-            n = max(len(self.class_groups[int(vid)]), 1)
-            gap = max(n // cfg.repeat, 1)
-            for i in range(cfg.repeat):
-                fid = min(gap * i + self.rng.randint(0, gap), n - 1)
-                plan.append((int(vid), int(fid), self.rng.random_sample(4)))
+        for _ in range(self.num_shards):
+            for vid in self.rng.randint(0, len(self.class_groups),
+                                        size=cfg.batch_size):
+                n = max(len(self.class_groups[int(vid)]), 1)
+                gap = max(n // cfg.repeat, 1)
+                for i in range(cfg.repeat):
+                    fid = min(gap * i + self.rng.randint(0, gap), n - 1)
+                    plan.append((int(vid), int(fid),
+                                 self.rng.random_sample(4)))
         return plan
 
     def load_item(self, vid: int, fid: int, draws):

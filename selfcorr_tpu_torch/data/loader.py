@@ -8,6 +8,9 @@ take the readers' decoding and crops out of the interpreter that launches
 the training step.
 TestLoader: sequential fixed-size batches; the tail batch is padded by
 repeating the last sample and carries a validity mask.
+Across ranks each loader takes a row_range, its [start, stop) of every
+global batch (parallel.process_row_range): every rank walks the same plan
+or batch schedule and loads only its own rows.
 
 This module, the readers and configs import no torch, so a worker process
 does not pay for it.
@@ -112,13 +115,18 @@ class TrainLoader:
     elementwise and import no torch. A pool that cannot start raises, it
     does not fall back to threads. An exception in a worker, or a broken
     pool, is raised by the iteration. Call close() when done: it leaves no
-    worker process alive."""
+    worker process alive.
+
+    row_range [start, stop): the rows of each step's plan this rank loads.
+    The whole plan is drawn all the same, so every rank's reader stays in
+    step with the others'."""
 
     def __init__(self, dataset, cfg: Config, start: int = 0,
-                 host_transform=None):
+                 host_transform=None, row_range=None):
         self.dataset = dataset
         self.cfg = cfg
         self.start = start
+        self.rows = slice(*row_range) if row_range else slice(None)
         n = max(cfg.num_workers, 1)
         if cfg.loader_processes:
             self.pool = process_pool(dataset, n, host_transform)
@@ -133,7 +141,7 @@ class TrainLoader:
 
     def _submit(self, step: int):
         return [self.pool.submit(self._load, *args)
-                for args in self.dataset.sample_plan(step)]
+                for args in self.dataset.sample_plan(step)[self.rows]]
 
     def _put(self, item) -> bool:
         while not self._stop.is_set():
@@ -179,11 +187,15 @@ class TrainLoader:
 
 
 class TestLoader:
+    """Batches of cfg.batch_size samples in order (shuffled by cfg.seed with
+    cfg.shuffle_test), the tail padded; with row_range [start, stop) only
+    those rows of each batch, and of its `valid` mask, are loaded."""
     __test__ = False  # not a pytest class
 
-    def __init__(self, dataset, cfg: Config):
+    def __init__(self, dataset, cfg: Config, row_range=None):
         self.dataset = dataset
         self.bsz = cfg.batch_size
+        self.rows = slice(*row_range) if row_range else slice(None)
         self.pool = ThreadPoolExecutor(max(cfg.num_workers, 1))
         order = np.arange(len(dataset))
         if cfg.shuffle_test:
@@ -203,8 +215,8 @@ class TestLoader:
                 idx = np.concatenate(
                     [idx, np.full(self.bsz - len(idx), idx[-1])])
             batch = stack_items(list(self.pool.map(self.dataset.load_item,
-                                                   idx)))
-            batch["valid"] = valid
+                                                   idx[self.rows])))
+            batch["valid"] = valid[self.rows]
             yield batch
 
     def close(self):

@@ -121,24 +121,28 @@ def _load_frame(track, fid: int, cfg: Config, rand_scale):
 
 
 class NOCSTrain:
-    def __init__(self, cfg: Config, seed: int = 0):
+    def __init__(self, cfg: Config, seed: int = 0, num_shards: int = 1):
         self.cfg = cfg
+        self.num_shards = num_shards
         with open(cfg.train_list) as f:
             scenes = f.read().strip().split()
         self.tracks = _index_instances(cfg.dataset_path, scenes, cfg.category)
         self.rng = np.random.RandomState(seed)
 
     def sample_plan(self, step: int):
-        """[(vid, fid, crop scale (2,))], video-major, frame-minor."""
+        """[(vid, fid, crop scale (2,))], shard-major, video-major,
+        frame-minor."""
         cfg = self.cfg
         plan = []
-        for vid in self.rng.randint(0, len(self.tracks), size=cfg.batch_size):
-            n = len(self.tracks[int(vid)]["masks"])
-            gap = max(n // cfg.repeat, 1)
-            for i in range(cfg.repeat):
-                fid = min(gap * i + self.rng.randint(0, gap), n - 1)
-                plan.append((int(vid), int(fid),
-                             self.rng.uniform(1.1, 1.3, size=(2,))))
+        for _ in range(self.num_shards):
+            for vid in self.rng.randint(0, len(self.tracks),
+                                        size=cfg.batch_size):
+                n = len(self.tracks[int(vid)]["masks"])
+                gap = max(n // cfg.repeat, 1)
+                for i in range(cfg.repeat):
+                    fid = min(gap * i + self.rng.randint(0, gap), n - 1)
+                    plan.append((int(vid), int(fid),
+                                 self.rng.uniform(1.1, 1.3, size=(2,))))
         return plan
 
     def load_item(self, vid: int, fid: int, scale):

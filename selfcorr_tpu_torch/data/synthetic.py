@@ -186,11 +186,14 @@ class SyntheticTrain:
     sample_plan draws, for each of cfg.batch_size videos, cfg.repeat frames
     spread over the video (video-major, frame-minor: the pairing layout)
     and each frame's crop scale, all from one RandomState in plan order, so
-    a run's batches do not depend on the loader's thread timing."""
+    a run's batches do not depend on the loader's thread timing; with
+    num_shards blocks of that, one a rank, shard-major."""
 
     def __init__(self, cfg: Config, seed: int = 0, num_videos: int = 4,
-                 frames_per_video: int = 24, shape: str = "ellipsoid"):
+                 frames_per_video: int = 24, shape: str = "ellipsoid",
+                 num_shards: int = 1):
         self.cfg = cfg
+        self.num_shards = num_shards
         self.videos = SyntheticVideos(num_videos, frames_per_video,
                                       seed=seed, shape=shape)
         self.rng = np.random.RandomState(seed + 1)
@@ -201,12 +204,13 @@ class SyntheticTrain:
         plan = []
         n = self.videos.n_frames
         gap = max(n // cfg.repeat, 1)
-        for vid in self.rng.randint(0, self.videos.n_videos,
-                                    size=cfg.batch_size):
-            for i in range(cfg.repeat):
-                fid = min(gap * i + self.rng.randint(0, gap), n - 1)
-                plan.append((int(vid), int(fid),
-                             self.rng.uniform(1.2, 1.5, size=(2,))))
+        for _ in range(self.num_shards):
+            for vid in self.rng.randint(0, self.videos.n_videos,
+                                        size=cfg.batch_size):
+                for i in range(cfg.repeat):
+                    fid = min(gap * i + self.rng.randint(0, gap), n - 1)
+                    plan.append((int(vid), int(fid),
+                                 self.rng.uniform(1.2, 1.5, size=(2,))))
         return plan
 
     def load_item(self, vid: int, fid: int, scale):

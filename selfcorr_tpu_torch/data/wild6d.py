@@ -80,22 +80,26 @@ class Wild6DVideos:
 
 
 class Wild6DTrain:
-    def __init__(self, cfg: Config, seed: int = 0):
+    def __init__(self, cfg: Config, seed: int = 0, num_shards: int = 1):
         self.cfg = cfg
+        self.num_shards = num_shards
         self.videos = Wild6DVideos(cfg.dataset_path, cfg.train_list)
         self.rng = np.random.RandomState(seed)
 
     def sample_plan(self, step: int):
-        """[(vid, fid, crop scale (2,))], video-major, frame-minor."""
+        """[(vid, fid, crop scale (2,))], shard-major, video-major,
+        frame-minor."""
         cfg = self.cfg
         plan = []
-        for vid in self.rng.randint(0, len(self.videos), size=cfg.batch_size):
-            n = self.videos.num_frames(int(vid))
-            gap = max(n // cfg.repeat, 1)
-            for i in range(cfg.repeat):
-                fid = min(gap * i + self.rng.randint(0, gap), n - 1)
-                plan.append((int(vid), int(fid),
-                             self.rng.uniform(1.2, 1.5, size=(2,))))
+        for _ in range(self.num_shards):
+            for vid in self.rng.randint(0, len(self.videos),
+                                        size=cfg.batch_size):
+                n = self.videos.num_frames(int(vid))
+                gap = max(n // cfg.repeat, 1)
+                for i in range(cfg.repeat):
+                    fid = min(gap * i + self.rng.randint(0, gap), n - 1)
+                    plan.append((int(vid), int(fid),
+                                 self.rng.uniform(1.2, 1.5, size=(2,))))
         return plan
 
     def load_item(self, vid: int, fid: int, scale):

@@ -37,10 +37,11 @@ def select_points(match_conf, depth, mask, max_points: int):
 @torch.no_grad()
 def fit_poses(match, match_conf, depth, mask, pp_crop, foc_crop, pred_v,
               base_rot, max_points: int = 16384, n_iters: int = 100,
-              sample_idx=None, generator=None) -> dict:
+              sample_idx=None, generator=None, sample_u=None) -> dict:
     """match (B, H, W, 3) canonical coords; depth / mask / conf (B, H, W);
     NDC intrinsics (B, 2); pred_v (B, N, 3); base_rot (3, 3).
-    sample_idx (B, n_iters, 5) RANSAC draws, else drawn from `generator`.
+    sample_idx (B, n_iters, 5) RANSAC draws, else drawn from the uniforms
+    sample_u (B, n_iters, 5) or from `generator`.
 
     Returns dict(bbox9, verts, rotation, translation, scale_fit, size, ok).
     """
@@ -59,7 +60,8 @@ def fit_poses(match, match_conf, depth, mask, pp_crop, foc_crop, pred_v,
     tgt = torch.stack([x, y, z], -1)                        # depth units (mm)
 
     fit = ransac_umeyama_batch(src, tgt, valid, n_iters=n_iters,
-                               sample_idx=sample_idx, generator=generator)
+                               sample_idx=sample_idx, generator=generator,
+                               sample_u=sample_u)
 
     ok = fit["ok"] & (valid.sum(-1) >= 5)
     eye = torch.eye(3, device=dev).expand(b, 3, 3)

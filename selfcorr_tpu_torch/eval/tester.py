@@ -18,7 +18,16 @@ intrinsics into depth / texture / mask panels (the fused rasterizer); on
 the crop when the frame cannot be read, and for CUB, which also gets its
 keypoint-transfer panels (_1, _2, _2_gt). --visualize_* choose panels;
 none of them means all. A rasterizer build or launch error propagates.
-Several devices or processes raise (configs.refuse_unported).
+
+Across ranks (parallel.launch; --batch_size is the global batch, split
+evenly) each rank loads and evaluates its rows of every global batch and
+writes its own rows' panels. Its jitter and RANSAC draws are the global
+batch's, drawn from the Tester's generator and sliced, and the match
+confidence's threshold (a mean over the whole batch) is summed across the
+ranks, so the metrics do not depend on the number of ranks. The NOCS
+accumulators are gathered, and every rank returns the whole run's metrics
+(rank 0 prints them). --eval_cub pairs the first and second halves of a
+batch, so it runs on one rank only.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from selfcorr_tpu_torch.ops import geometry as G
 from selfcorr_tpu_torch.ops.image_ops import jitter_factors
 from selfcorr_tpu_torch.ops.rasterizer import render_fused
 from selfcorr_tpu_torch.ops.rasterizer.common import EYE_OFFSET
+from selfcorr_tpu_torch import parallel as P
 from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils.device import resolve_device
 from selfcorr_tpu_torch.utils.logging import write_config_snapshot
@@ -89,25 +99,55 @@ def load_model(model: MeshNet, path: str) -> None:
         model.load_state_dict(ckpt.restore_raw(path)["model"])
 
 
+def merge_accumulators(acc: NocsAccumulator, parts) -> None:
+    """Replace acc's samples by those of every rank: parts holds each
+    rank's (iou_hits, degcm_hits, raw), in rank order (the JAX package's
+    _merge_across_processes)."""
+    acc.iou_hits = [h for p in parts for h in p[0]]
+    acc.degcm_hits = [h for p in parts for h in p[1]]
+    acc.raw = [r for p in parts for r in p[2]]
+
+
 class Tester:
     __test__ = False  # not a pytest class
 
-    def __init__(self, cfg: Config, model: MeshNet | None = None):
+    def __init__(self, cfg: Config, model: MeshNet | None = None,
+                 rank: P.Rank | None = None):
         refuse_unported(cfg, train=False)
+        P.require_rank(cfg, rank)
+        self.rank = rank.rank if rank else 0
+        self.world = rank.world if rank else 1
+        self.group = rank.group if rank else None
+        self.is_main = P.is_main()
+        if self.world > 1 and cfg.eval_cub:
+            raise NotImplementedError(
+                "--eval_cub pairs the first and second halves of each "
+                "batch (the keypoint transfer), which rows split over "
+                "ranks would pair differently: evaluate CUB on one rank")
+        self.row_range = P.process_row_range(self.rank, self.world,
+                                             cfg.batch_size)
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        self.device = rank.device if rank else resolve_device(cfg.device)
         self.run_dir = os.path.join(cfg.checkpoint_dir, cfg.name)
         self.vis_dir = cfg.vis_path or os.path.join(self.run_dir, "vis")
-        write_config_snapshot(self.run_dir, cfg, "config-test.txt")
+        if self.is_main:
+            write_config_snapshot(self.run_dir, cfg, "config-test.txt")
         self.constants = build_mesh_constants(cfg)
         if model is None:
             model = init_model(cfg, self.constants)
         if cfg.model_path:
             load_model(model, cfg.model_path)
         self.model = model.to(self.device).eval()
+        if self.group is not None:
+            P.broadcast_module(self.model, group=self.group)
         self.base_rot = torch.as_tensor(self.constants.base_rot,
                                         device=self.device)
         self.generator = torch.Generator().manual_seed(cfg.seed + 123)
+
+    def batch_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed over the global batch's ranks (the match confidence's
+        threshold is a mean over the whole batch)."""
+        return t if self.group is None else P.all_sum(t, self.group)
 
     def to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(np.asarray(v, np.float32),
@@ -115,27 +155,35 @@ class Tester:
                 for k, v in batch.items() if k in BATCH_KEYS}
 
     def predict_batch(self, batch: dict, jitter=None, sample_idx=None):
-        """Forward + pose fit of one host batch. jitter (4,) and
-        sample_idx (B, ransac_iters, 5) are the draws; absent ones come
-        from the Tester's generator."""
+        """Forward + pose fit of one host batch, this rank's rows of a
+        global batch of world x as many. jitter (4,) and sample_idx (B,
+        ransac_iters, 5) are the draws; absent ones come from the Tester's
+        generator, for the global batch (jitter, then the RANSAC uniforms
+        of every row), of which this rank takes its rows."""
         cfg = self.cfg
         tb = self.to_device(batch)
         if jitter is None:
             jitter = jitter_factors(self.generator)
+        u = None
+        if sample_idx is None:
+            b = len(batch["img"])
+            u = torch.rand((b * self.world, cfg.ransac_iters, 5),
+                           generator=self.generator)[
+                self.rank * b: (self.rank + 1) * b]
         pred = forward_test(self.model, tb, self.constants, cfg,
-                            jitter=jitter)
+                            jitter=jitter, batch_sum=self.batch_sum)
         fit = fit_poses(pred["match"], pred["match_conf"], tb["depth"],
                         tb["mask"], tb["pp_crop"], tb["foc_crop"],
                         pred["pred_v"], self.base_rot,
                         max_points=cfg.pose_fit_max_points,
                         n_iters=cfg.ransac_iters, sample_idx=sample_idx,
-                        generator=self.generator)
+                        sample_u=u)
         return pred, fit
 
     def test(self) -> dict:
         cfg = self.cfg
         dataset = make_test_dataset(cfg)
-        loader = TestLoader(dataset, cfg)
+        loader = TestLoader(dataset, cfg, self.row_range)
         acc = NocsAccumulator(cfg.symmetry_idx) if cfg.eval_nocs else None
         cub_iou, cub_pck = [], []
         try:
@@ -153,16 +201,20 @@ class Tester:
                     cub_pck += pck
                 if cfg.vis_pred:
                     self._write_panels(dataset, batch, pred, fit)
-                if (bi + 1) % 10 == 0:
+                if self.is_main and (bi + 1) % 10 == 0:
                     print(f"tested batch {bi + 1}/{len(loader)}")
         finally:
             loader.close()
 
         results = {}
         if acc is not None:
+            if self.group is not None:
+                merge_accumulators(acc, P.gather_objects(
+                    (acc.iou_hits, acc.degcm_hits, acc.raw), self.group))
             results = acc.summary()
-            for k in NocsAccumulator.KEYS:
-                print(f"{k}:", results[k])
+            if self.is_main:
+                for k in NocsAccumulator.KEYS:
+                    print(f"{k}:", results[k])
         if cfg.eval_cub and cub_iou:
             pck = np.asarray(cub_pck, np.float64).reshape(-1, 2)
             results["mIoU"] = float(np.mean(cub_iou))

@@ -37,14 +37,16 @@ def masked_cost_volume(img_feat, mesh_feat, mask_down):
 
 def dual_softmax_match(img_feat, mesh_feat, mask, pred_v, meshgrid,
                        tau_img: float, tau_mesh: float, hf: int, wf: int,
-                       compute_conf: bool = False):
+                       compute_conf: bool = False, batch_sum=None):
     """Returns (pointcorr, match_map (B, H, W, 3), imatch (B, N, 2),
     match_conf (B, H, W) or None).
 
     match_conf is the forward-backward cycle confidence: each pixel's 3D
     match -> its nearest vertex -> that vertex's imatch -> distance back to
     the pixel, exp(-5 err), bilinearly upsampled, zeroed below the masked
-    mean over the WHOLE batch (capped at 0.5) as the JAX package does."""
+    mean over the WHOLE batch (capped at 0.5) as the JAX package does.
+    batch_sum, when given, sums a tensor over the whole batch where the
+    rows are split across ranks (the JAX package's global batch)."""
     b, h, w = mask.shape
     mask_down = resize_nearest(mask[..., None], (hf, wf)).reshape(b, -1)
     pointcorr = masked_cost_volume(img_feat, mesh_feat, mask_down)
@@ -65,8 +67,10 @@ def dual_softmax_match(img_feat, mesh_feat, mask, pred_v, meshgrid,
         conf = torch.exp(-5.0 * fberr).reshape(b, hf, wf)
         conf = resize_bilinear(conf[..., None], (h, w))[..., 0]
         on = mask > 0
-        msum = torch.clamp(on.sum(), min=1)
-        cmean = torch.clamp((conf * on).sum() / msum, max=0.5)
+        sums = torch.stack([(conf * on).sum(), on.sum().to(conf.dtype)])
+        if batch_sum is not None:
+            sums = batch_sum(sums)
+        cmean = torch.clamp(sums[0] / torch.clamp(sums[1], min=1), max=0.5)
         match_conf = torch.where(conf < cmean, 0.0, conf)
 
     match_map = resize_nearest(match.reshape(b, hf, wf, 3), (h, w))

@@ -343,9 +343,12 @@ def forward_train(model: MeshNet, dino, batch: dict, dc: DeviceConstants,
 
 @torch.no_grad()
 def forward_test(model: MeshNet, batch: dict, constants: MeshConstants,
-                 cfg: Config, jitter=None, generator=None) -> dict:
+                 cfg: Config, jitter=None, generator=None,
+                 batch_sum=None) -> dict:
     """Eval forward: prediction tuple incl. the forward-backward match
-    confidence. `model` must be in eval mode (running BN statistics)."""
+    confidence, whose threshold is a mean over the whole batch (batch_sum:
+    see dual_softmax_match). `model` must be in eval mode (running BN
+    statistics)."""
     img = batch["img"]
     b = img.shape[0]
     dev = img.device
@@ -356,7 +359,8 @@ def forward_test(model: MeshNet, batch: dict, constants: MeshConstants,
     meshgrid = corr.make_meshgrid(cfg.corr_h, cfg.corr_w, device=dev)
     pointcorr, match_map, imatch, match_conf = corr.dual_softmax_match(
         img_feat, mesh_feat, batch["mask"], pred_v, meshgrid,
-        cfg.tau_img, cfg.tau_mesh, cfg.corr_h, cfg.corr_w, compute_conf=True)
+        cfg.tau_img, cfg.tau_mesh, cfg.corr_h, cfg.corr_w, compute_conf=True,
+        batch_sum=batch_sum)
     tex = grid_sample(img, imatch)
     faces = torch.as_tensor(constants.faces, dtype=torch.long, device=dev)
     return dict(pred_v=pred_v, faces=faces, tex=tex, imatch=imatch,

@@ -42,14 +42,17 @@ def umeyama_similarity(src, tgt, w):
 
 
 def draw_samples(valid: torch.Tensor, n_iters: int, n_sample: int,
-                 generator: torch.Generator) -> torch.Tensor:
+                 generator: torch.Generator | None = None,
+                 u: torch.Tensor | None = None) -> torch.Tensor:
     """(B, n_iters, n_sample) indices drawn uniformly, with replacement,
-    from each row's valid points; drawn on the CPU from `generator`."""
+    from each row's valid points: from the uniforms `u` in [0, 1) of that
+    shape, else from ones drawn on the CPU from `generator`."""
     b, n = valid.shape
     v = valid.cpu()
     order = torch.sort((~v).to(torch.int8), dim=-1, stable=True).indices
     count = v.sum(-1).clamp(min=1)
-    u = torch.rand((b, n_iters, n_sample), generator=generator)
+    if u is None:
+        u = torch.rand((b, n_iters, n_sample), generator=generator)
     k = (u * count[:, None, None]).long().minimum(count[:, None, None] - 1)
     idx = torch.gather(order, 1, k.reshape(b, -1)).reshape(b, n_iters,
                                                            n_sample)
@@ -58,11 +61,13 @@ def draw_samples(valid: torch.Tensor, n_iters: int, n_sample: int,
 
 def ransac_umeyama_batch(src, tgt, valid, n_iters: int = 100,
                          n_sample: int = 5, sample_idx=None,
-                         generator: torch.Generator | None = None) -> dict:
+                         generator: torch.Generator | None = None,
+                         sample_u=None) -> dict:
     """Fixed-shape RANSAC + final inlier refit for a batch of point sets.
 
     src, tgt (B, N, 3); valid (B, N) bool; sample_idx (B, n_iters,
-    n_sample) the minimal samples (else drawn from `generator`).
+    n_sample) the minimal samples, else drawn (draw_samples) from the
+    uniforms sample_u of that shape or from `generator`.
     Returns dict(scale, R, t, inlier_ratio, ok), batched over B."""
     src = src.float()
     tgt = tgt.float()
@@ -75,9 +80,11 @@ def ransac_umeyama_batch(src, tgt, valid, n_iters: int = 100,
                            src_norm / torch.clamp(tgt_norm, min=1e-12))
 
     if sample_idx is None:
-        if generator is None:
-            raise ValueError("ransac needs sample_idx or a generator")
-        sample_idx = draw_samples(valid, n_iters, n_sample, generator)
+        if generator is None and sample_u is None:
+            raise ValueError("ransac needs sample_idx, sample_u or a "
+                             "generator")
+        sample_idx = draw_samples(valid, n_iters, n_sample, generator,
+                                  sample_u)
     sample_idx = sample_idx.to(src.device).long()
     flat = sample_idx.reshape(b, -1, 1).expand(-1, -1, 3)
     s_pts = torch.gather(src, 1, flat).reshape(b, n_iters, n_sample, 3)

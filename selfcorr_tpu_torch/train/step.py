@@ -5,7 +5,10 @@ One step: decompress the uploaded batch, the training forward (all losses,
 the fused render through kernels B1 and B2, the frozen DINO trunk through
 kernel B3), backward, per-group clipping and the NaN guard, one AdamW
 update with the OneCycle learning rates. The metrics stay on the device as
-0-d tensors; the caller fetches them when it logs.
+0-d tensors; the caller fetches them when it logs. Across ranks (a process
+group) each rank steps on its own rows, and the gradients, aux losses and
+BatchNorm running statistics are averaged before the clip, as the JAX
+package's train_step_sharded pmeans them (selfcorr_tpu/train/step.py:175).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from selfcorr_tpu_torch.models.meshnet import (DeviceConstants, MeshConstants,
                                                device_constants,
                                                forward_train)
 from selfcorr_tpu_torch.models.vit import DinoViTS8
+from selfcorr_tpu_torch.parallel import all_mean_
 from selfcorr_tpu_torch.train.optim import Optimizer, clip_and_guard
 from selfcorr_tpu_torch.utils.weight_convert import (load_pretrained_init,
                                                      load_warm_start)
@@ -76,11 +80,22 @@ def decompress_batch(batch: dict) -> dict:
     return out
 
 
+def running_stats(model: torch.nn.Module) -> list:
+    """The BatchNorm running means and variances of `model` (not the
+    update counts, which every rank advances alike)."""
+    return [b for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))]
+
+
 def train_step(state: TrainState, batch: dict, draws: StepDraws,
-               cfg: Config) -> dict:
+               cfg: Config, group=None) -> dict:
     """One training step on a device batch (float32 or compressed),
-    updating `state` in place. Returns the metrics as 0-d device tensors:
-    the aux losses, the three group gradient norms and bad_grad."""
+    updating `state` in place. With a process group, `batch` and `draws`
+    are this rank's, and the ranks' gradients, aux losses and BatchNorm
+    running statistics are averaged (one coalesced all-reduce) before the
+    clip and the update, which every rank then takes alike. Returns the
+    metrics as 0-d device tensors: the aux losses, the three group
+    gradient norms and bad_grad."""
     batch = decompress_batch(batch)
     model = state.model
     model.zero_grad(set_to_none=True)
@@ -90,6 +105,12 @@ def train_step(state: TrainState, batch: dict, draws: StepDraws,
     for p in model.parameters():   # every parameter takes part in the update
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    if group is not None:
+        names = sorted(aux)
+        losses = torch.stack([aux[k].detach() for k in names])
+        all_mean_([p.grad for p in model.parameters()] + [losses]
+                  + running_stats(model), group)
+        aux = dict(zip(names, losses.unbind()))
     norms, bad = clip_and_guard(model)
     state.optimizer.step(state.step)
     state.step += 1

@@ -11,7 +11,9 @@ so it loads with torch.load(weights_only=True).
 
 A save writes `state.pt.tmp` in the step's directory, flushes it to disk and
 renames it into place, so a run killed while saving leaves no `state.pt`
-for latest_step to pick.
+for latest_step to pick. Across ranks the state is replicated: rank 0
+writes it and the others wait at a barrier (train/loop.py Trainer.save),
+and every rank restores from the same directory.
 """
 from __future__ import annotations
 

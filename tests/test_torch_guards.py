@@ -52,7 +52,8 @@ def test_port_imports_no_jax_cv2_or_jax_package():
             "selfcorr_tpu_torch/ops/attention.py",
             "selfcorr_tpu_torch/ops/knn.py",
             "selfcorr_tpu_torch/losses/regularizers.py",
-            "selfcorr_tpu_torch/utils/cuda_build.py"} <= names
+            "selfcorr_tpu_torch/utils/cuda_build.py",
+            "selfcorr_tpu_torch/parallel/__init__.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -128,12 +129,7 @@ TINY = ["--dataset_name", "synthetic", "--img_size", "32", "--corr_h", "8",
         "--pretrain_k", "8", "--n_corr_feat", "16", "--codedim", "8",
         "--symmetry_npts", "256", "--device", "cpu"]
 _TRAIN, _EVAL = "Trainer", "Tester"
-REFUSED = ([("num_devices", 2, e) for e in (_TRAIN, _EVAL)]
-           + [("multihost", True, e) for e in (_TRAIN, _EVAL)]
-           + [("coordinator_address", "localhost:1234", _TRAIN),
-              ("num_processes", 2, _TRAIN), ("process_id", 0, _EVAL),
-              ("profile_steps", 5, _TRAIN),
-              ("synthetic_on_device", True, _TRAIN)])
+REFUSED = [("profile_steps", 5, _TRAIN), ("synthetic_on_device", True, _TRAIN)]
 
 
 def entry(name):
@@ -152,6 +148,140 @@ def test_unported_flag_is_a_later_slice(flag, value, cls, tmp_path):
         **{flag: value})
     with pytest.raises(NotImplementedError, match="later slice"):
         entry(cls)(cfg)
+
+
+_COORD = "127.0.0.1:29999"
+# device and process flags that do not hold together: ValueError at both
+# entry points, before anything is built
+INCOHERENT = [
+    (dict(num_processes=2), "come together"),
+    (dict(process_id=0), "come together"),
+    (dict(coordinator_address=_COORD, num_processes=2), "come together"),
+    (dict(num_devices=3, num_processes=2, process_id=0,
+          coordinator_address=_COORD), "not a multiple"),
+    (dict(num_devices=2, num_processes=2, process_id=2,
+          coordinator_address=_COORD), "out of range"),
+    (dict(num_devices=0), "at least 1"),
+]
+
+
+@pytest.mark.parametrize("flags,match", INCOHERENT)
+@pytest.mark.parametrize("cls", [_TRAIN, _EVAL])
+def test_parallel_flags_that_do_not_hold_together(flags, match, cls,
+                                                  tmp_path):
+    from selfcorr_tpu_torch.configs import parse_args
+    cfg = parse_args(["--flagfile", LAPTOP, *TINY,
+                      "--checkpoint_dir", str(tmp_path)]).replace(**flags)
+    with pytest.raises(ValueError, match=match):
+        entry(cls)(cfg)
+    assert not os.listdir(tmp_path)
+
+
+_TORCHRUN = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+             "MASTER_PORT")
+
+
+def test_multihost_needs_torchrun_environment(monkeypatch):
+    from selfcorr_tpu_torch import parallel as P
+    from selfcorr_tpu_torch.configs import Config
+    for k in _TORCHRUN:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        P.layout(Config(device="cpu", multihost=True))
+
+
+def test_more_cuda_ranks_than_gpus_raise():
+    """One rank per GPU: asking for more local CUDA ranks than the machine
+    has raises (the JAX Trainer clamps --num_devices to the devices it
+    sees)."""
+    from selfcorr_tpu_torch import parallel as P
+    from selfcorr_tpu_torch.configs import Config
+    n = max(torch.cuda.device_count() + 1, 2)
+    with pytest.raises(ValueError, match="GPU"):
+        P.layout(Config(num_devices=n))
+    with pytest.raises(ValueError, match="GPU"):
+        P.layout(Config(num_devices=2 * n, num_processes=2, process_id=1,
+                        coordinator_address=_COORD))
+
+
+def test_cuda_ranks_without_nccl_raise():
+    import torch.distributed as dist
+    from selfcorr_tpu_torch import parallel as P
+    if dist.is_nccl_available():
+        pytest.skip("this PyTorch has NCCL")
+    with pytest.raises(RuntimeError, match="NCCL"):
+        P.init_distributed(0, 1, _COORD, device="cuda")
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("cls", [_TRAIN, _EVAL])
+def test_ranks_start_through_launch(cls, tmp_path):
+    """A Trainer or Tester asked for several ranks without being given its
+    rank raises: the entry points start the ranks (parallel.launch)."""
+    from selfcorr_tpu_torch.configs import parse_args
+    cfg = parse_args(["--flagfile", LAPTOP, *TINY, "--num_devices", "2",
+                      "--checkpoint_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="parallel.launch"):
+        entry(cls)(cfg)
+
+
+@pytest.mark.parametrize("flags,env,want", [
+    (dict(), {}, None),
+    (dict(num_devices=2), {}, (2, 0, ("cpu", "cpu"), "")),
+    (dict(num_devices=4, num_processes=2, process_id=1,
+          coordinator_address=_COORD), {},
+     (4, 2, ("cpu", "cpu"), f"tcp://{_COORD}")),
+    (dict(multihost=True), dict(RANK="3", WORLD_SIZE="4", LOCAL_RANK="1",
+                                MASTER_ADDR="10.0.0.1", MASTER_PORT="1"),
+     (4, 3, ("cpu",), "env://")),
+], ids=["one_device", "num_devices", "num_processes", "multihost"])
+def test_parallel_flags_lay_out_ranks(flags, env, want, monkeypatch):
+    """--num_devices is the world size; the multi-process flags give this
+    process's share of the ranks; --multihost takes torchrun's."""
+    from selfcorr_tpu_torch import parallel as P
+    from selfcorr_tpu_torch.configs import Config
+    for k in _TORCHRUN:
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    lay = P.layout(Config(device="cpu", **flags))
+    assert (lay if lay is None else (lay.world, lay.first, lay.devices,
+                                     lay.init_method)) == want
+
+
+@pytest.mark.parametrize("how", ["process_flags", "multihost"])
+def test_world_of_one_trains_through_a_group(how, tmp_path, monkeypatch):
+    """--num_processes 1 --process_id 0 --coordinator_address, or
+    --multihost under torchrun's variables for one rank: the train entry
+    point runs its one rank in this process through a gloo group of one,
+    trains, and leaves no group behind."""
+    import torch.distributed as dist
+    from selfcorr_tpu_torch import parallel as P
+    from selfcorr_tpu_torch.train.loop import main
+    port = P.free_port()
+    if how == "multihost":
+        for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                         MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)
+                         ).items():
+            monkeypatch.setenv(k, v)
+        flags = ["--multihost"]
+    else:
+        flags = ["--num_processes", "1", "--process_id", "0",
+                 "--coordinator_address", f"127.0.0.1:{port}"]
+    seen = []
+    real = P.all_mean_
+
+    def spy(tensors, group=None):
+        seen.append(dist.get_world_size(group))
+        return real(tensors, group)
+    monkeypatch.setattr("selfcorr_tpu_torch.train.step.all_mean_", spy)
+    trainer = main(["train", "--flagfile", LAPTOP, *TINY, *flags,
+                    "--total_iters", "1", "--batch_log_interval", "1",
+                    "--num_workers", "2", "--checkpoint_dir",
+                    str(tmp_path)])
+    assert trainer.state.step == 1 and seen == [1]
+    assert all(np.isfinite(v) for v in trainer.logged[0][1].values())
+    assert not dist.is_initialized()
 
 
 # the flags that refused until their modules landed, and the files each

@@ -1218,6 +1218,12 @@ def step_kernels_vs_plain(state, batch, draws, cfg, path="train"):
     from selfcorr_tpu_torch.train import step as ST
     with torch.no_grad():
         feats = state.dino(batch["img"].float() / 255.0)
+
+    class FixedTrunk:       # the trunk's features, computed once
+        dtype = torch.float32
+
+        def __call__(self, img):
+            return feats
     lrs = state.optimizer.lrs(0)
     lr_of = {n: lrs[g] for g, ps in state.optimizer.groups.items()
              for n, _ in ps}
@@ -1227,7 +1233,7 @@ def step_kernels_vs_plain(state, batch, draws, cfg, path="train"):
     for route in ("kernels", "plain"):
         st = copy.deepcopy(state)
         st.step = 0
-        st.dino = lambda img: feats
+        st.dino = FixedTrunk()
         grads = {}
         guard = ST.clip_and_guard
 
@@ -2753,6 +2759,357 @@ KERNELS = {
 }
 
 
+# phase 14: the last trainer flags
+FLAGS_WORK = os.path.join(ROOT, ".work", "flags")  # profiler run, removed
+DEVSYNTH_ARGS = ["--synthetic_on_device", "--batch_log_interval", "2",
+                 "--total_iters", "6"]
+
+
+class AttnHold:
+    """Wraps B3's wrapper while a run goes: each launch's inputs are held
+    against the plain version right there, on the views the path passes
+    (their dtype and strides kept); the count stays the wrapper's."""
+
+    def __init__(self):
+        from selfcorr_tpu_torch.ops import attention as A
+        self.module, self.fn = A, A.flash_attention_cuda
+        self.errs, self.bad, self.layouts = [], 0, set()
+
+    def __enter__(self):
+        def spy(q, k, v):
+            out = self.fn(q, k, v)
+            _, err, ok = (None, *attn_compare(
+                out, self.module.flash_attention_plain(q, k, v), v))
+            self.errs.append(err)
+            self.bad += not ok
+            self.layouts.add((str(q.dtype), tuple(q.shape), q.stride()))
+            return out
+        self.module.flash_attention_cuda = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.flash_attention_cuda = self.fn
+
+
+def run_launches(argv, want: dict, tag: str, attn: AttnHold | None = None):
+    """The train entry point with `argv`, launch counts zeroed just before
+    and read just after; fails unless they are `want` and every logged
+    loss is finite. Returns (trainer, launches)."""
+    from selfcorr_tpu_torch.train import loop
+    with (attn or contextlib.nullcontext()):
+        reset_launches()
+        trainer = loop.main(["train"] + argv)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    if launches != want:
+        fail(f"{tag}: launches {launches}, expected {want}")
+    bad = [(st, k) for st, vals in trainer.logged for k, v in vals.items()
+           if not math.isfinite(v)]
+    if not trainer.logged or bad:
+        fail(f"{tag}: {len(trainer.logged)} logs, non-finite {bad}")
+    print(f"[{tag}] launches {launches}; logged total_loss "
+          + " ".join(f"{st}:{v['total_loss']:.8f}"
+                     for st, v in trainer.logged), flush=True)
+    return trainer, launches
+
+
+def bf16_trunk_card_vs_cpu() -> dict:
+    """The bf16 trunk at the path's width (img 256) on the card against the
+    same trunk on the CPU, two images."""
+    from selfcorr_tpu_torch.models.vit import DinoViTS8
+    torch.manual_seed(0)
+    cpu = DinoViTS8(img_size=256).to(torch.bfloat16).eval()
+    card = copy.deepcopy(cpu).to("cuda")
+    img = torch.rand((2, 256, 256, 3), generator=torch.Generator()
+                     .manual_seed(1)).bfloat16()
+    with torch.no_grad():
+        got = card(img.cuda()).float().cpu()
+        t0 = time.time()
+        want = cpu(img).float()
+        cpu_s = time.time() - t0
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max()) / scale
+    mean = float((got - want).abs().mean()) / scale
+    print(f"[bf16] trunk features card vs CPU at (2, 256, 256): max|diff| "
+          f"{err:.3g}, mean {mean:.3g} of their largest entry (bounds 2e-2, "
+          f"3e-3); the CPU trunk took {cpu_s:.1f} s", flush=True)
+    if not (err <= 2e-2 and mean <= 3e-3):
+        fail(f"the bf16 trunk on the card is {err:.3g} (mean {mean:.3g}) "
+             f"from the CPU's")
+    return {"max_rel": err, "mean_rel": mean}
+
+
+def step_ab_in_turns(a, b, batch, draws, turns: int = 4, reps: int = 3):
+    """Warm train_step of Trainers a and b on one batch, in turns (a b b a
+    ...): median ms of each over `turns` x `reps` synchronized steps."""
+    from selfcorr_tpu_torch.train.step import train_step
+    ms = {0: [], 1: []}
+    order = [0, 1, 1, 0] * (turns // 2)
+    for i in order:
+        t = (a, b)[i]
+        train_step(t.state, batch, draws, t.cfg)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            t0 = time.time()
+            train_step(t.state, batch, draws, t.cfg)
+            torch.cuda.synchronize()
+            ms[i].append((time.time() - t0) * 1e3)
+    return statistics.median(ms[0]), statistics.median(ms[1]), ms
+
+
+def bf16_phase(card: str) -> dict:
+    """(a) --dino_bf16: 3 steps through the entry point, every B3 launch
+    held against the plain version at its bf16-qkv views; the trunk on the
+    card against the CPU; the warm step with and without the flag in
+    turns; one _log_images; save and resume bit for bit."""
+    from selfcorr_tpu_torch.models.meshnet import draw_step
+    from selfcorr_tpu_torch.train import loop
+    want = dp_want(3)
+    with AttnHold() as attn:
+        trainer, launches = run_launches(
+            TRAIN_ARGS + ["--dino_bf16", "--total_iters", "3",
+                          "--checkpoint_dir", OUT, "--name",
+                          fresh_run("bf16")], want, "bf16", attn)
+    if trainer.state.dino.dtype != torch.bfloat16:
+        fail(f"--dino_bf16: the trunk is {trainer.state.dino.dtype}")
+    print(f"[bf16] {len(attn.errs)} B3 launches held against the plain "
+          f"version at the bf16 trunk's views {sorted(attn.layouts)}: max|"
+          f"err| {max(attn.errs):.3g}, {attn.bad} beyond the bound",
+          flush=True)
+    if attn.bad or len(attn.errs) != want["dino_flash_attn"]:
+        fail(f"B3 at the bf16 trunk's inputs: {attn.bad} of "
+             f"{len(attn.errs)} launches disagree")
+    trunk = bf16_trunk_card_vs_cpu()
+
+    # save (the run's final checkpoint, step 3) and resume bit for bit
+    resumed = loop.Trainer(trainer.cfg)
+    saved, got = state_tensors(trainer.state), state_tensors(resumed.state)
+    bad = [k for k in saved if got[k].dtype != saved[k].dtype
+           or not torch.equal(got[k], saved[k])]
+    if resumed.state.step != 3 or bad:
+        fail(f"--dino_bf16 resume: step {resumed.state.step}, differ "
+             f"{bad[:10]}")
+    cfg = trainer.cfg
+    batch, _ = train_batch(trainer)
+    draws = draw_step(loop.step_generator(cfg.seed, 3), cfg,
+                      batch["img"].shape[0])
+    with deterministic():
+        noise = max_diff(stepped(trainer.state, batch, draws, cfg),
+                         stepped(trainer.state, batch, draws, cfg))
+        err = max_diff(stepped(resumed.state, batch, draws, cfg),
+                       stepped(trainer.state, batch, draws, cfg))
+    print(f"[bf16] resumed at step 3 with a bf16 trunk equal to the saved "
+          f"one ({len(saved)} tensors); its next step vs the straight "
+          f"run's: max|diff| {err:.3g} (two runs of the step: {noise:.3g})",
+          flush=True)
+    if not (err == 0.0 if noise == 0.0 else err <= noise):
+        fail(f"--dino_bf16: the resumed step is {err:.3g} off (noise "
+             f"{noise:.3g})")
+    del resumed
+
+    # one _log_images: B1 twice at B = 2, B3 9 times in an f32 copy of the
+    # bf16 trunk
+    writer = ImageLog(loop.NoopWriter())
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    trainer._log_images(writer, batch, 3)
+    torch.cuda.synchronize()
+    log_ms = (time.time() - t0) * 1e3
+    vis_launches = read_launches()
+    vis_want = {"raster_fused_fwd": 2, "raster_fused_bwd": 0,
+                "raster_fused_fwd_chunk": 0, "raster_fused_bwd_chunk": 0,
+                "dino_flash_attn": ATTN_PER_STEP}
+    if vis_launches != vis_want or len(writer.images) != 20:
+        fail(f"--dino_bf16 _log_images: launches {vis_launches}, "
+             f"{len(writer.images)} images")
+    print(f"[bf16] _log_images with the bf16 trunk: {len(writer.images)} "
+          f"images, launches {vis_launches}, {log_ms:.1f} ms on {card}",
+          flush=True)
+
+    # the warm step with and without the flag, in turns (recorded)
+    plain = loop.Trainer(cfg.replace(dino_bf16=False, name=fresh_run(
+        "bf16_off")))
+    f32_ms, bf16_ms, all_ms = step_ab_in_turns(plain, trainer, batch, draws)
+    print(f"[bf16] warm train_step at batch 32 in turns: f32 trunk "
+          f"{f32_ms:.2f} ms, bf16 trunk {bf16_ms:.2f} ms (medians of "
+          f"{len(all_ms[0])} each) on {card}", flush=True)
+    del plain, trainer
+    drop_checkpoints()
+    return {"launches": launches, "vis_launches": vis_launches,
+            "b3_max_abs_err": max(attn.errs), "b3_layouts": sorted(
+                map(str, attn.layouts)), "trunk_card_vs_cpu": trunk,
+            "resume_max_diff": err, "step_noise": noise,
+            "log_images_ms": log_ms, "step_ms_f32_trunk": f32_ms,
+            "step_ms_bf16_trunk": bf16_ms, "step_ms_all": all_ms}
+
+
+def silhouette(mask):
+    """Pixels of a (B, H, W) bool mask with a pixel of the other value in
+    their 3 x 3 neighbourhood."""
+    m = mask.float()[:, None]
+    pad = torch.nn.functional.pad(m, (1, 1, 1, 1), mode="replicate")
+    lo = -torch.nn.functional.max_pool2d(-pad, 3, 1)
+    hi = torch.nn.functional.max_pool2d(pad, 3, 1)
+    return (lo != hi)[:, 0]
+
+
+def devsynth_card_vs_cpu(cfg) -> dict:
+    """The device generator's batch at the path's width on the card
+    against the CPU's, given one set of draws: boxes exact, masks equal
+    off the silhouette, img and depth where the masks agree."""
+    from selfcorr_tpu_torch.data import synthetic_device as SD
+    from selfcorr_tpu_torch.data.synthetic import SyntheticVideos
+    videos = SyntheticVideos(seed=cfg.seed, shape=cfg.synthetic_shape)
+    bs, rp = cfg.batch_size, cfg.repeat
+    g = torch.Generator().manual_seed(14)
+    vids = torch.randint(0, videos.n_videos, (bs,), generator=g)
+    offs = torch.randint(0, videos.n_frames // rp, (bs, rp), generator=g)
+    scale = 1.2 + 0.3 * torch.rand((bs * rp, 2), generator=g)
+    boxes = []
+    for dev in ("cpu", "cuda"):
+        t = SD.video_tables(videos, dev)
+        v = torch.repeat_interleave(vids, rp).to(dev)
+        fids = torch.clamp(torch.arange(rp)[None] * (videos.n_frames // rp)
+                           + offs, max=videos.n_frames - 1).reshape(-1)
+        theta = t["phase"][v] + 2.0 * math.pi * fids.float().to(dev) \
+            / videos.n_frames
+        rot = SD.rot_mats(t["tilt"][v], theta)
+        boxes.append([x.cpu() for x in SD.crop_bbox_analytic(
+            t, v, rot, t["z0"][v], videos.raw, 1 if videos.shape ==
+            "ellipsoid" else 2)])
+    box_diff = sum(int((a != b).any(-1).sum()) for a, b in zip(*boxes))
+    cpu_gen = SD.make_device_synth(cfg, videos, "cpu")
+    card_gen = SD.make_device_synth(cfg, videos, "cuda")
+    want = cpu_gen(vids=vids, offs=offs, scale=scale)
+    got = {k: v.cpu() for k, v in card_gen(vids=vids, offs=offs,
+                                           scale=scale).items()}
+    flips = got["mask"] != want["mask"]
+    off_edge = int((flips & ~silhouette(want["mask"] > 0)).sum())
+    same = ~flips
+    img_err = float((got["img"] - want["img"]).abs()[same].max())
+    depth_err = float((got["depth"] - want["depth"]).abs()[same].max())
+    intr = max(float((got[k] - want[k]).abs().max())
+               for k in ("foc_crop", "pp_crop"))
+    print(f"[devsynth] generator card vs CPU at batch {bs * rp} x "
+          f"{cfg.img_size}^2 on one set of draws: crop boxes differing "
+          f"{box_diff}; mask pixels differing {int(flips.sum())} of "
+          f"{flips.numel()} ({off_edge} off the silhouette); where the masks "
+          f"agree img max|diff| {img_err:.3g} (bound 5e-3), depth "
+          f"{depth_err:.3g} mm (bound 2); foc/pp {intr:.3g}", flush=True)
+    if (box_diff or off_edge or float(flips.float().mean()) > 1e-3
+            or img_err > 5e-3 or depth_err > 2.0 or intr > 1e-5):
+        fail("the device generator on the card disagrees with the CPU's")
+    # ms per batch on the card, the draws made once
+    gen_ms = time_ms(lambda: card_gen(vids=vids, offs=offs, scale=scale),
+                     reps=10)
+    return {"box_diff": box_diff, "mask_flips": int(flips.sum()),
+            "mask_flips_off_silhouette": off_edge, "img_max_abs": img_err,
+            "depth_max_abs_mm": depth_err, "gen_ms": gen_ms}
+
+
+def devsynth_phase(card: str, phase9_step_ms: float) -> dict:
+    """(b) --dataset_name synthetic --synthetic_on_device: the generator on
+    the card against the CPU's; --steps_per_dispatch 1 and 3 over 6 steps
+    at --batch_log_interval 2, equal where two runs of K = 1 are (phase
+    10's rule), under the deterministic algorithms; the generator's ms per
+    batch beside train_step, and the step with device batches."""
+    from selfcorr_tpu_torch.data import synthetic_device as SD
+    from selfcorr_tpu_torch.train.step import train_step
+    from selfcorr_tpu_torch.models.meshnet import draw_step
+    from selfcorr_tpu_torch.train import loop
+    runs, launches = {}, {}
+    with deterministic():
+        for tag, k in (("devsynth_k1", 1), ("devsynth_k1b", 1),
+                       ("devsynth_k3", 3)):
+            runs[tag], launches[tag] = run_launches(
+                TRAIN_ARGS + DEVSYNTH_ARGS + [
+                    "--steps_per_dispatch", str(k), "--checkpoint_dir",
+                    OUT, "--name", fresh_run(tag)], dp_want(6), tag)
+    drop_checkpoints()
+    if runs["devsynth_k3"].chunks != [2, 2, 2] or \
+            runs["devsynth_k1"].chunks != [1] * 6:
+        fail(f"chunks: K=1 {runs['devsynth_k1'].chunks}, K=3 "
+             f"{runs['devsynth_k3'].chunks}")
+    a, b, c = (state_tensors(runs[t].state) for t in (
+        "devsynth_k1", "devsynth_k1b", "devsynth_k3"))
+    noise, err = max_diff(a, b), max_diff(a, c)
+    logs = [[(st, v) for st, v in runs[t].logged]
+            for t in ("devsynth_k1", "devsynth_k1b", "devsynth_k3")]
+    log_noise = max(abs(x[1][n] - y[1][n]) for x, y in zip(logs[0], logs[1])
+                    for n in x[1])
+    log_err = max(abs(x[1][n] - y[1][n]) for x, y in zip(logs[0], logs[2])
+                  for n in x[1])
+    steps_logged = [[st for st, _ in lg] for lg in logs]
+    print(f"[devsynth] K=3 vs K=1 after 6 steps: model and optimizer "
+          f"max|diff| {err:.3g}, logged losses {log_err:.3g} at steps "
+          f"{steps_logged[2]}; two K=1 runs: {noise:.3g}, {log_noise:.3g}",
+          flush=True)
+    if steps_logged[0] != steps_logged[2] or not (
+            (err == 0.0 and log_err == 0.0) if noise == 0.0 == log_noise
+            else (err <= noise and log_err <= log_noise)):
+        fail("--steps_per_dispatch 3 differs from 1 beyond two runs of 1")
+
+    trainer = runs["devsynth_k1"]
+    cfg = trainer.cfg
+    gen_cmp = devsynth_card_vs_cpu(cfg)
+    gen = SD.make_device_synth(cfg, loop.make_train_dataset(cfg).videos,
+                               trainer.device)
+    batch = gen(SD.step_generator(cfg.seed, 0))
+    draws = draw_step(loop.step_generator(cfg.seed, 0), cfg,
+                      batch["img"].shape[0])
+    step_ms = time_ms(lambda: train_step(trainer.state, batch, draws, cfg),
+                      reps=5, warmup=1, trials=1)
+    both_ms = time_ms(lambda: train_step(trainer.state, gen(
+        SD.step_generator(cfg.seed, 0)), draws, cfg), reps=5, warmup=1,
+        trials=1)
+    print(f"[devsynth] at batch 32 on {card}: the generator "
+          f"{gen_cmp['gen_ms']:.3f} ms a batch, train_step "
+          f"{step_ms:.2f} ms, generator + train_step {both_ms:.2f} ms a "
+          f"step (phase 9's warm step on host-loader batches "
+          f"{phase9_step_ms:.2f} ms)", flush=True)
+    del runs, trainer
+    return {"launches": {t: launches[t] for t in ("devsynth_k1",
+                                                  "devsynth_k3")},
+            "k3_vs_k1_max_diff": err, "k3_vs_k1_log_diff": log_err,
+            "k1_noise": noise, "k1_log_noise": log_noise,
+            "generator": gen_cmp, "step_ms": step_ms,
+            "gen_and_step_ms": both_ms}
+
+
+def profile_phase() -> dict:
+    """(c) --profile_steps 2 over 13 steps: rank 0 writes a non-empty
+    Chrome trace of steps 11 and 12 under <run>/trace."""
+    shutil.rmtree(FLAGS_WORK, ignore_errors=True)
+    trainer, launches = run_launches(
+        TRAIN_ARGS + ["--profile_steps", "2", "--total_iters", "13",
+                      "--checkpoint_dir", FLAGS_WORK, "--name", "profile"],
+        dp_want(13), "profile")
+    trace = os.path.join(trainer.run_dir, "trace")
+    files = sorted(os.listdir(trace)) if os.path.isdir(trace) else []
+    sizes = [os.path.getsize(os.path.join(trace, f)) for f in files]
+    events = []
+    if files:
+        with open(os.path.join(trace, files[0])) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[profile] trace files {files} ({sizes} bytes, {len(events)} "
+          f"events, {kernels} of them device kernels)", flush=True)
+    if files != ["steps_11-12.json"] or not events:
+        fail(f"--profile_steps 2: trace directory holds {files}")
+    shutil.rmtree(FLAGS_WORK, ignore_errors=True)
+    return {"launches": launches, "files": files, "bytes": sizes,
+            "events": len(events), "kernel_events": kernels}
+
+
+def flags_phase(card: str, phase9_step_ms: float) -> dict:
+    """Phase 14."""
+    out = {"bf16": bf16_phase(card)}
+    out["devsynth"] = devsynth_phase(card, phase9_step_ms)
+    out["profile"] = profile_phase()
+    return out
+
+
 def device_setup():
     """Require CUDA; print the card's name and power limit and the torch
     build; work from the repo's root with float32 precision. Returns
@@ -2872,9 +3229,13 @@ def main() -> int:
         data = data_phase(smi, steps["train"][0])
         phase("data parallel")
         dp = dp_phase(smi, data.pop("paths"), data["w6d_eval"])
+        phase("the last trainer flags: --dino_bf16, --synthetic_on_device, "
+              "--profile_steps")
+        flags = flags_phase(smi, steps["train"][0])
     finally:
         shutil.rmtree(FIXTURES, ignore_errors=True)
         shutil.rmtree(DP_WORK, ignore_errors=True)
+        shutil.rmtree(FLAGS_WORK, ignore_errors=True)
         drop_checkpoints()
     launches.update({p: data[f"{p}_launches"] for p in (
         "w6d_train", "w6d_train_long", "w6d_train_long_threads", "w6d_vis",
@@ -2885,6 +3246,10 @@ def main() -> int:
                      for rk in dp["gloo"]["ranks"]})
     launches.update({f"dp_eval_rank{r}": n
                      for r, n in enumerate(dp["eval"]["launches"])})
+    launches.update({"bf16_train": flags["bf16"]["launches"],
+                     "bf16_log_images": flags["bf16"]["vis_launches"],
+                     **flags["devsynth"]["launches"],
+                     "profile": flags["profile"]["launches"]})
     summary = {"card": smi, "build_s": build_s, "resource_usage": usage,
                "fwd_sass_lds": lds,
                "predict_ms_per_batch": per_batch * 1e3,
@@ -2898,7 +3263,8 @@ def main() -> int:
                "train_imgs_per_s": {p: s[1] for p, s in steps.items()},
                "train_profile": {p: s[2] for p, s in steps.items()},
                "train_step_parity": parity, "train_paths": main_costs,
-               "checkpoint": ckpt_res, "data": data, "data_parallel": dp}
+               "checkpoint": ckpt_res, "data": data, "data_parallel": dp,
+               "flags": flags}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     rows = []
@@ -2920,6 +3286,8 @@ def main() -> int:
             row["w6d_vis"] = dict(data["w6d_vis"]["costs"][name],
                                   max_abs_err=data["w6d_vis"]["max_abs_err"]
                                   [name])
+        if name == "dino_flash_attn":     # at the bf16 trunk's views
+            row["bf16_trunk_max_abs_err"] = flags["bf16"]["b3_max_abs_err"]
         if name in dp["gloo"]["ranks"][0]["max_abs_err"]:
             row["dp_gloo_max_abs_err"] = [
                 rk["max_abs_err"][name] for rk in dp["gloo"]["ranks"]]

@@ -2,15 +2,14 @@
 names and `--flagfile` includes (counterpart of selfcorr_tpu/configs.py).
 
 The port keeps every field of the JAX package's Config so that any flag file
-either package accepts parses here too; fields that only steer the JAX
-package (use_pallas, dino_flash, dino_pad_once, steps_per_dispatch, ...) are
-parsed and ignored. dino_attn_bf16 selects the trunk's bf16 attention
-(kernel B3 on the card). `device` is the port's own field: entry points run
-on "cuda" unless the caller asks for "cpu". Flags that ask for work the port
-does not do yet (the profiler trace, batches made on the device) raise at
-the entry points (refuse_unported) rather than run something else; a set of
-device and process flags that does not hold together raises there too
-(check_parallel_flags).
+either package accepts parses here too, and runs every flag the JAX
+package's Trainer and Tester read, apart from those that only steer the JAX
+package, which are parsed and ignored: use_pallas, dino_flash,
+dino_pad_once, platform, host_rss_restart_gb. dino_attn_bf16 selects the
+trunk's bf16 attention (kernel B3 on the card), dino_bf16 a bf16 trunk.
+`device` is the port's own field: entry points run on "cuda" unless the
+caller asks for "cpu". A set of device and process flags that does not hold
+together raises at the entry points (check_parallel_flags).
 """
 from __future__ import annotations
 
@@ -158,23 +157,6 @@ class Config:
 
 
 _MULTI_PROCESS = ("coordinator_address", "num_processes", "process_id")
-
-
-def refuse_unported(cfg: Config, train: bool) -> None:
-    """Raise NotImplementedError if cfg asks the training loop (train) for
-    what the port does not do yet: the profiler trace and batches made on
-    the device. The evaluation runs every flag it reads."""
-    asked = []
-    if train:
-        if cfg.profile_steps > 0:
-            asked.append("--profile_steps (a profiler trace of the loop)")
-        if cfg.synthetic_on_device:
-            asked.append("--synthetic_on_device (batches made on the "
-                         "device)")
-    if asked:
-        raise NotImplementedError(
-            f"{'; '.join(asked)}: not ported yet, this comes in a later "
-            f"slice")
 
 
 def check_parallel_flags(cfg: Config) -> None:

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from selfcorr_tpu_torch.configs import Config, refuse_unported
+from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.data.loader import BATCH_KEYS, TestLoader
 from selfcorr_tpu_torch.eval.metrics import NocsAccumulator, map_kp, mask_iou
 from selfcorr_tpu_torch.eval.pose_fit import fit_poses
@@ -113,7 +113,6 @@ class Tester:
 
     def __init__(self, cfg: Config, model: MeshNet | None = None,
                  rank: P.Rank | None = None):
-        refuse_unported(cfg, train=False)
         P.require_rank(cfg, rank)
         self.rank = rank.rank if rank else 0
         self.world = rank.world if rank else 1

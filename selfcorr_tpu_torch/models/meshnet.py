@@ -307,8 +307,8 @@ def forward_train(model: MeshNet, dino, batch: dict, dc: DeviceConstants,
     bs = b // rep
     cyc_pt = cyc = zero
     if cfg.cycle_loss_pretrain_wt != 0.0:
-        with torch.no_grad():
-            dino_feat = dino(img)
+        with torch.no_grad():   # a bf16 trunk (--dino_bf16) on a bf16 image
+            dino_feat = dino(img.to(dino.dtype)).float()
         dino_feat = dino_feat.reshape(b, -1, dino_feat.shape[-1])
         cyc_pt, _ = corr.dino_cycle_loss(
             divide(dino_feat, bs, rep), divide(mask, bs, rep),

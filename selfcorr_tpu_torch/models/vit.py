@@ -16,6 +16,14 @@ Attention goes through ops/attention.py: with attn_bf16 (the
 kernel B3; block 9's keys are returned as those bf16 values in float32, as
 in the JAX package. The ragged token count (1025 at 256^2) needs no padding:
 the kernel masks its tail.
+
+A trunk cast to bfloat16 (--dino_bf16) computes every layer in bfloat16 on
+a bfloat16 image, as flax applies bf16 parameters to a bf16 input, and
+rounds where flax does: a dense layer's or the patch embedding's product
+before its bias, GELU after each operation (dense, gelu); its LayerNorms
+(statistics in float32, the output in bf16) already agree. Its q, k and v
+are bf16 whatever attn_bf16 says, so its attention always takes the flash
+route (B3 on the card).
 """
 from __future__ import annotations
 
@@ -25,6 +33,24 @@ import torch.nn.functional as F
 
 from selfcorr_tpu_torch.ops.attention import attention
 
+SQRT_HALF_BF16 = 0.70703125     # sqrt(0.5) rounded to bfloat16
+
+
+def dense(layer: nn.Linear, x):
+    """layer(x); in bfloat16 the product is rounded before the bias is
+    added, as flax Dense rounds (dot_general, then + bias)."""
+    if x.dtype == torch.bfloat16:
+        return F.linear(x, layer.weight) + layer.bias
+    return layer(x)
+
+
+def gelu(x):
+    """Exact GELU; in bfloat16 with jax.nn.gelu's roundings: 0.5 x times
+    erfc(-x sqrt(0.5)), each operation rounded, sqrt(0.5) rounded first."""
+    if x.dtype == torch.bfloat16:
+        return (0.5 * x) * torch.special.erfc(-x * SQRT_HALF_BF16)
+    return F.gelu(x)
+
 
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
@@ -33,7 +59,7 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return dense(self.fc2, gelu(dense(self.fc1, x)))
 
 
 class Attention(nn.Module):
@@ -47,7 +73,7 @@ class Attention(nn.Module):
         """x (B, T, C) -> q, k, v as (B, T, heads, d) views of one tensor,
         rounded to bf16 under attn_bf16."""
         b, t, c = x.shape
-        qkv = self.qkv(x)
+        qkv = dense(self.qkv, x)
         if attn_bf16:
             qkv = qkv.bfloat16()
         qkv = qkv.reshape(b, t, 3, self.num_heads, c // self.num_heads)
@@ -58,7 +84,7 @@ class Attention(nn.Module):
         q, k, v = self.qkv_heads(x, attn_bf16)
         y = attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
         y = y.transpose(1, 2).reshape(b, t, c).to(x.dtype)
-        return self.proj(y)
+        return dense(self.proj, y)
 
 
 class Block(nn.Module):
@@ -103,10 +129,22 @@ class DinoViTS8(nn.Module):
         self.blocks = nn.ModuleList([Block(dim, num_heads)
                                      for _ in range(feature_layer + 1)])
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The trunk's parameter dtype: float32, or bfloat16 under
+        --dino_bf16 (train/step.py init_state)."""
+        return self.pos_embed.dtype
+
     def forward(self, img):
         b, h, w, _ = img.shape
         gh, gw = h // self.patch_size, w // self.patch_size
-        x = self.patch_embed.proj(img.permute(0, 3, 1, 2))
+        pe = self.patch_embed.proj
+        x = img.permute(0, 3, 1, 2)
+        if x.dtype == torch.bfloat16:   # the product rounded before the bias
+            x = F.conv2d(x, pe.weight, stride=pe.stride) \
+                + pe.bias[:, None, None]
+        else:
+            x = pe(x)
         x = x.flatten(2).transpose(1, 2)                   # (B, gh*gw, C)
         x = torch.cat([self.cls_token.expand(b, -1, -1), x], 1)
         x = x + self.pos_embed

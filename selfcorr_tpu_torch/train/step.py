@@ -44,12 +44,10 @@ def init_state(cfg: Config, constants: MeshConstants, device,
     weights do not depend on the device), or the ones given; then, as the
     JAX package's init_state does (selfcorr_tpu/train/step.py:57-65), the
     pretrained imports (--resnet_init_path, --dino_init_path) and the warm
-    start (--warm_start_path), still on the CPU; moved to `device`; the
-    optimizer over the model's five groups, its moments at zero."""
-    if cfg.dino_bf16:
-        raise NotImplementedError(
-            "--dino_bf16 (a bfloat16 trunk at rest) is not ported; the "
-            "trunk runs in float32 with bfloat16 attention")
+    start (--warm_start_path), still on the CPU; with --dino_bf16 the
+    frozen trunk cast to bfloat16 once, at rest (selfcorr_tpu/train/
+    step.py:66-72); moved to `device`; the optimizer over the model's five
+    groups, its moments at zero."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(cfg.seed)
         if model is None:
@@ -60,6 +58,8 @@ def init_state(cfg: Config, constants: MeshConstants, device,
     load_pretrained_init(cfg, model, dino)
     if cfg.warm_start_path:
         load_warm_start(cfg, model)
+    if cfg.dino_bf16:
+        dino = dino.to(torch.bfloat16)
     model = model.to(device).train()
     dino = dino.to(device).eval().requires_grad_(False)
     dino.attn_bf16 = cfg.dino_attn_bf16

@@ -5,7 +5,8 @@ Layout as orbax's CheckpointManager writes it: one directory a step,
 `ckpt_dir/<step>/state.pt`, none pruned. A checkpoint holds the model's
 whole state_dict (parameters, mesh.mean_v, every BatchNorm buffer), the
 optimizer's five AdamW groups (moments and per-parameter step counts),
-TrainState.step and the frozen DINO trunk's weights, once. It holds only
+TrainState.step and the frozen DINO trunk's weights, once, in the trunk's
+dtype (bfloat16 under --dino_bf16). It holds only
 tensors, Python numbers, strings, None and dicts, lists or tuples of them,
 so it loads with torch.load(weights_only=True).
 
@@ -77,7 +78,9 @@ def restore_raw(path: str, step: int | None = None) -> dict:
 def restore_state(path: str, state, step: int | None = None):
     """Load a checkpoint into `state` in place (model, DINO trunk,
     optimizer, step) and return it. The tensors are read to the CPU and
-    copied into the state's own; AdamW's load_state_dict moves the moments
+    copied into the state's own, so a trunk saved in one dtype is cast to
+    the run's (float32 to bfloat16 rounds it as init_state does with
+    --dino_bf16); AdamW's load_state_dict moves the moments
     to the parameters' device and leaves each `step` count on the CPU, where
     a fresh AdamW keeps it."""
     raw = restore_raw(path, step)

@@ -117,6 +117,39 @@ def test_resume_is_bitwise(tmp_path):
     assert all(torch.equal(mb[k], ma[k]) for k in ma), (ma, mb)
 
 
+def test_dino_bf16_resume_is_bitwise(tmp_path):
+    """--dino_bf16: a checkpoint restores into the run's trunk dtype, so
+    one written without the flag resumes a bf16 run with its trunk rounded
+    to bfloat16 (as init_state rounds an imported trunk); the bf16 run's own
+    checkpoint holds the trunk in bfloat16, and a Trainer that resumes from
+    it holds the saved state bit for bit and steps as the saving one."""
+    cfg = parse_args(tiny_args(tmp_path) + ["--dino_bf16"])
+    a = Trainer(cfg)
+    # a checkpoint whose trunk is float32, off the bf16 grid
+    f32 = copy.copy(a.state)
+    f32.dino = copy.deepcopy(a.state.dino).float()
+    with torch.no_grad():
+        for p in f32.dino.parameters():
+            p.mul_(1.0 + 2.0 ** -12)
+    ckpt.save_state(os.path.join(str(tmp_path), "f32"), f32, 0)
+    ckpt.restore_state(os.path.join(str(tmp_path), "f32"), a.state)
+    got = a.state.dino.state_dict()
+    assert all(got[k].dtype == torch.bfloat16
+               and torch.equal(got[k], v.to(torch.bfloat16))
+               for k, v in f32.dino.state_dict().items())
+    batches = [a.upload(h) for h in plan_batches(cfg, 2)]
+    take_step(a, batches[0], 0)
+    a.save(1)
+    raw = ckpt.restore_raw(a.ckpt_dir)
+    assert raw["dino"] and all(v.dtype == torch.bfloat16
+                               for v in raw["dino"].values())
+    b = Trainer(cfg)
+    assert_equal_states(state_tensors(b), state_tensors(a))
+    ma, mb = take_step(a, batches[1], 1), take_step(b, batches[1], 1)
+    assert_equal_states(state_tensors(b), state_tensors(a))
+    assert all(torch.equal(mb[k], ma[k]) for k in ma)
+
+
 class Recorder:
     """A writer that keeps its add_scalar calls."""
 

@@ -561,3 +561,78 @@ def test_forward_vis_on_card_matches_cpu(cuda):
     for k, want in cpu.items():
         torch.testing.assert_close(gpu[k].cpu(), want, atol=1e-3, rtol=0,
                                    msg=k)
+
+
+def test_bf16_trunk_on_card_runs_b3_and_matches_cpu(cuda):
+    """A trunk cast to bfloat16 (--dino_bf16) with attn_bf16 off: its q, k,
+    v are bf16 strided views of the qkv projection's bf16 output, so each
+    of its 9 attention blocks launches B3; its features against the same
+    trunk on the CPU (flash_attention_plain) within 2e-2 of their largest
+    entry and 3e-3 in mean (bf16 roundings that the card's and the CPU's
+    products place apart, compounded over 10 blocks)."""
+    from selfcorr_tpu_torch.models.vit import DinoViTS8
+    torch.manual_seed(0)
+    cpu = DinoViTS8(img_size=64, attn_bf16=False).to(torch.bfloat16)
+    card = copy.deepcopy(cpu).to(cuda)
+    img = torch.rand((2, 64, 64, 3), generator=torch.Generator()
+                     .manual_seed(1)).bfloat16()
+    before = A.LAUNCHES["dino_flash_attn"]
+    with torch.no_grad():
+        got = card(img.to(cuda)).float().cpu()
+        want = cpu(img).float()
+    assert A.LAUNCHES["dino_flash_attn"] == before + 9
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 2e-2 * scale
+    assert float((got - want).abs().mean()) <= 3e-3 * scale
+
+
+def silhouette(mask):
+    """Pixels of a (B, H, W) bool mask with a pixel of the other value in
+    their 3 x 3 neighbourhood."""
+    m = mask.float()[:, None]
+    pad = torch.nn.functional.pad(m, (1, 1, 1, 1), mode="replicate")
+    lo = -torch.nn.functional.max_pool2d(-pad, 3, 1)
+    hi = torch.nn.functional.max_pool2d(pad, 3, 1)
+    return (lo != hi)[:, 0]
+
+
+def test_device_generator_on_card_matches_cpu(cuda):
+    """--synthetic_on_device's generator on the card against the CPU, given
+    the same draws: the integer crop boxes equal; a mask pixel may differ
+    only on the silhouette (a grazing ray whose discriminant rounds across
+    0), and at most 0.1% of the pixels; where both masks agree, img within
+    5e-3 and depth within 2 mm of ~6000 (2.31e-3 and 1 mm measured at the
+    training path's width, chip_smoke.py phase 14: sin / cos and the
+    grazing rays' hit distances round apart on the card)."""
+    from selfcorr_tpu_torch.data import synthetic_device as SD
+    from selfcorr_tpu_torch.data.synthetic import SyntheticVideos
+    cfg = Config(dataset_name="synthetic", img_size=64, batch_size=4,
+                 repeat=2, synthetic_shape="duo")
+    videos = SyntheticVideos(seed=0, shape="duo")
+    g = torch.Generator().manual_seed(5)
+    vids = torch.randint(0, 4, (4,), generator=g)
+    offs = torch.randint(0, 12, (4, 2), generator=g)
+    scale = 1.2 + 0.3 * torch.rand((8, 2), generator=g)
+    boxes = {}
+    for dev in ("cpu", cuda):
+        t = SD.video_tables(videos, dev)
+        v = torch.repeat_interleave(vids, 2).to(dev)
+        fids = torch.clamp(torch.arange(2)[None] * 12 + offs, max=23)
+        theta = t["phase"][v] + 2.0 * np.pi * fids.reshape(-1).float().to(
+            dev) / 24
+        rot = SD.rot_mats(t["tilt"][v], theta)
+        boxes[str(dev)] = [x.cpu() for x in SD.crop_bbox_analytic(
+            t, v, rot, t["z0"][v], 320, 2)]
+    assert all(torch.equal(a, b) for a, b in zip(*boxes.values()))
+    want = SD.make_device_synth(cfg, videos, "cpu")(vids=vids, offs=offs,
+                                                    scale=scale)
+    got = {k: v.cpu() for k, v in SD.make_device_synth(cfg, videos, cuda)(
+        vids=vids, offs=offs, scale=scale).items()}
+    flips = got["mask"] != want["mask"]
+    assert not bool((flips & ~silhouette(want["mask"] > 0)).any())
+    assert float(flips.float().mean()) <= 1e-3
+    same = ~flips
+    assert float((got["img"] - want["img"]).abs()[same].max()) <= 5e-3
+    assert float((got["depth"] - want["depth"]).abs()[same].max()) <= 2.0
+    for k in ("foc_crop", "pp_crop"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-6)

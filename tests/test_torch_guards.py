@@ -5,8 +5,10 @@ The import check is static (an AST scan): the test interpreter imports JAX
 at start-up, so a runtime sys.modules check could not tell."""
 import ast
 import glob
+import json
 import importlib.util
 import os
+import shutil
 import subprocess
 import sys
 
@@ -129,25 +131,43 @@ TINY = ["--dataset_name", "synthetic", "--img_size", "32", "--corr_h", "8",
         "--pretrain_k", "8", "--n_corr_feat", "16", "--codedim", "8",
         "--symmetry_npts", "256", "--device", "cpu"]
 _TRAIN, _EVAL = "Trainer", "Tester"
-REFUSED = [("profile_steps", 5, _TRAIN), ("synthetic_on_device", True, _TRAIN)]
-
-
 def entry(name):
     from selfcorr_tpu_torch.eval.tester import Tester
     from selfcorr_tpu_torch.train.loop import Trainer
     return {_TRAIN: Trainer, _EVAL: Tester}[name]
 
 
-@pytest.mark.parametrize("flag,value,cls", REFUSED)
-def test_unported_flag_is_a_later_slice(flag, value, cls, tmp_path):
-    """A flag asking for work the port does not do yet raises at the entry
-    point that would do it, before anything is built."""
+def test_profile_steps_traces_the_window(tmp_path, capsys, monkeypatch):
+    """--profile_steps N traces steps 11 to 10 + N (0-based, the log's
+    step - 1) into <run>/trace as a Chrome trace. A run with N = 1 to step
+    11 closes the window; one with N = 5 ends inside it, writes the steps it
+    traced and says so. Both start at step 10, where the window opens, and
+    write no checkpoint; the cycle losses are off (the loop is under
+    test)."""
     from selfcorr_tpu_torch.configs import parse_args
-    cfg = parse_args(["--flagfile", LAPTOP, *TINY,
-                      "--checkpoint_dir", str(tmp_path)]).replace(
-        **{flag: value})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        entry(cls)(cfg)
+    from selfcorr_tpu_torch.train import loop
+    from selfcorr_tpu_torch.utils.logging import NoopWriter
+    # the scalar writer would import TensorFlow here (~15 s)
+    monkeypatch.setattr(loop, "make_writer", lambda run_dir: NoopWriter())
+    monkeypatch.setattr(loop.Trainer, "save", lambda self, step: None)
+    cfg = parse_args(
+        ["--flagfile", LAPTOP, *TINY, "--checkpoint_dir", str(tmp_path),
+         "--num_workers", "2", "--total_iters", "12",
+         "--batch_log_interval", "100", "--subdivide", "1",
+         "--cycle_loss_wt", "0", "--cycle_loss_pretrain_wt", "0"])
+    trainer = entry(_TRAIN)(cfg)
+    trace = os.path.join(trainer.run_dir, "trace")
+    for n, ended in ((1, False), (5, True)):
+        trainer.cfg = cfg.replace(profile_steps=n)
+        trainer.state.step, trainer.trace_path = 10, None
+        shutil.rmtree(trace, ignore_errors=True)
+        trainer.train()
+        assert os.listdir(trace) == ["steps_11-11.json"]
+        assert trainer.trace_path == os.path.join(trace, "steps_11-11.json")
+        with open(trainer.trace_path) as f:
+            assert json.load(f)["traceEvents"]
+        out = capsys.readouterr().out
+        assert ("ended inside the window" in out) == ended
 
 
 _COORD = "127.0.0.1:29999"
@@ -343,11 +363,13 @@ def test_ported_flag_does_its_work(flag, tmp_path):
 @pytest.mark.parametrize("flagfile", sorted(
     os.path.relpath(p, ROOT)
     for p in glob.glob(os.path.join(ROOT, "config", "*", "*.txt"))))
-def test_config_flag_files_ask_for_nothing_unported(flagfile):
-    from selfcorr_tpu_torch.configs import parse_args, refuse_unported
+def test_config_flag_files_ask_for_nothing_unported(flagfile, capsys):
+    """Every flag of every flag file is a field the port runs: none is
+    ignored as unknown."""
+    from selfcorr_tpu_torch.configs import Config, parse_args
     cfg = parse_args(["--flagfile", os.path.join(ROOT, flagfile)])
-    refuse_unported(cfg, train=True)
-    refuse_unported(cfg, train=False)
+    assert isinstance(cfg, Config)
+    assert "ignoring unknown flag" not in capsys.readouterr().out
 
 
 def test_defaults_and_ported_panels_still_construct(tmp_path, capsys):
@@ -393,3 +415,39 @@ def test_nocs_and_cub_flag_files_construct_on_fixtures(flagfile, cls,
         ("nocs", _TRAIN): "NOCSTrain", ("nocs", _EVAL): "NOCSTest",
         ("cub", _TRAIN): "CUBTrain", ("cub", _EVAL): "CUBTest"}[
         (obj.cfg.dataset_name, cls)]
+
+
+def test_dino_bf16_logs_images_from_an_f32_copy(tmp_path, monkeypatch):
+    """--dino_bf16: the Trainer's trunk is bfloat16 at rest; the image log
+    runs forward_vis on an f32 copy of it (the JAX package applies the bf16
+    weights to f32 images), whose weights are the bf16 values, and leaves
+    the run's trunk in bf16. (tests/test_torch_checkpoint.py trains and
+    resumes with the flag.)"""
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.data import synthetic_device as SD
+    from selfcorr_tpu_torch.data.synthetic import SyntheticVideos
+    from selfcorr_tpu_torch.train import loop
+    seen, images = [], []
+    forward_vis = loop.forward_vis
+
+    def spy(model, dino, *a, **k):
+        seen.append(dino)
+        return forward_vis(model, dino, *a, **k)
+    monkeypatch.setattr(loop, "forward_vis", spy)
+
+    class Images:
+        def add_image(self, tag, img, step, **kw):
+            images.append(tag)
+    cfg = parse_args(["--flagfile", LAPTOP, *TINY, "--checkpoint_dir",
+                      str(tmp_path), "--dino_bf16", "--subdivide", "1"])
+    trainer = entry(_TRAIN)(cfg)
+    assert trainer.state.dino.dtype == torch.bfloat16
+    batch = SD.make_device_synth(cfg, SyntheticVideos(seed=0), "cpu")(
+        SD.step_generator(0, 0))
+    trainer._log_images(Images(), batch, 1)
+    assert len(images) == 20
+    assert len(seen) == 1 and seen[0].dtype == torch.float32
+    assert trainer.state.dino.dtype == torch.bfloat16
+    ref = trainer.state.dino.state_dict()
+    assert all(torch.equal(v, ref[k].float())
+               for k, v in seen[0].state_dict().items())

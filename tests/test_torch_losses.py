@@ -156,6 +156,31 @@ def test_symmetry_loss_and_surface_samples_with_jax_draws(symmetry_idx):
                            jnp.asarray(rots), 256), rtol=1e-5)
 
 
+def test_symmetry_loss_does_not_depend_on_the_thread_count():
+    """ROADMAP C.13: the symmetry loss and its vertex gradient are bit for
+    bit alike at 1 CPU thread and at all of them, at the training path's
+    sample count. (The train step's CPU forward upstream of it is not: its
+    convolutions change with the thread count, and the face pick turns that
+    into a loss difference; tests/split_c13.py prints it.)"""
+    v, faces = mesh(seed=3)
+    u, ub = M.surface_draws(torch.Generator().manual_seed(3), 2, 10000)
+    rots = t(symmetry_rotations(0))
+    threads = torch.get_num_threads()
+    got = []
+    for n in (1, max(threads, 2)):
+        torch.set_num_threads(n)
+        try:
+            vt = t(v).requires_grad_(True)
+            loss = L.symmetry_loss(vt, torch.tensor(faces), rots, 10000, u=u,
+                                   ub=ub)
+            loss.backward()
+            got.append((loss.detach(), vt.grad))
+        finally:
+            torch.set_num_threads(threads)
+    assert torch.equal(got[0][0], got[1][0])
+    assert torch.equal(got[0][1], got[1][1])
+
+
 def test_zero_area_faces_are_never_sampled():
     v, faces = mesh()
     faces = np.concatenate([faces, [[0, 0, 0], [1, 1, 1]]]).astype(np.int64)

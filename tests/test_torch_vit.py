@@ -121,3 +121,96 @@ def test_routes():
     assert A.LAUNCHES == before
     with pytest.raises(ValueError, match="CUDA"):
         A.flash_attention_cuda(qb, qb, qb)
+
+
+# --- the bfloat16 trunk at rest (--dino_bf16) ------------------------------
+
+@pytest.fixture(scope="module")
+def params(trunks):
+    """The trunks fixture's flax parameters (the same key and input)."""
+    img = trunks[0]
+    return jax.jit(JaxDino().init)(jax.random.PRNGKey(0),
+                                   jnp.asarray(img))["params"]
+
+
+def bf16_params(params):
+    return jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), params)
+
+
+def port_trunk(sd, feature_layer=9):
+    """The port's trunk on the weights `sd`, cast to bfloat16 (attn_bf16
+    off)."""
+    keep = {k: v for k, v in sd.items() if not k.startswith("blocks.") or
+            int(k.split(".")[1]) <= feature_layer}
+    model = DinoViTS8(img_size=32, feature_layer=feature_layer,
+                      attn_bf16=False)
+    model.load_state_dict(keep)
+    return model.to(torch.bfloat16)
+
+
+def test_bf16_trunk_rounds_where_flax_does(trunks, params):
+    """The trunk up to block 0's keys (patch embedding, position
+    embedding, LayerNorm, qkv) in bfloat16 against flax's bf16 parameters
+    on the bf16 image: the products rounded before their bias as flax
+    rounds them; an entry may differ by one bf16 ulp where the two
+    products' f32 sums round apart (0.008% measured)."""
+    img, sd, _ = trunks
+    want = np.asarray(JaxDino(feature_layer=0).apply(
+        {"params": bf16_params(params)},
+        jnp.asarray(img).astype(jnp.bfloat16)).astype(jnp.float32))
+    with torch.no_grad():
+        got = port_trunk(sd, feature_layer=0)(
+            torch.tensor(img).bfloat16()).float().numpy()
+    differ = got != want
+    assert differ.mean() <= 1e-3
+    assert (np.abs(got - want) <= 2.0 ** -7 * np.abs(want))[differ].all()
+
+
+def test_bf16_trunk_against_jax_bf16_trunk(trunks, params, monkeypatch):
+    """The 10 blocks in bfloat16 against flax's on bf16 parameters and the
+    bf16 image, attn_bf16 off. q, k and v are bf16 all the same, so every
+    block's attention takes the flash route (flash_attention_plain on the
+    CPU, kernel B3 on the card); the JAX package's CPU trunk has no flash
+    path and runs XLA's bf16 attention, which rounds elsewhere (p
+    normalized before its bf16 rounding). Measured, as fractions of the
+    features' largest entry: max 8.0e-3, mean 1.6e-3 (the JAX bf16 trunk
+    against its f32 trunk: 1.07e-2, 1.6e-3). Bounds 1.2e-2 and 2.5e-3."""
+    img, sd, ref = trunks
+    want = np.asarray(jax.jit(JaxDino().apply)(
+        {"params": bf16_params(params)},
+        jnp.asarray(img).astype(jnp.bfloat16)).astype(jnp.float32))
+    calls = []
+    plain = A.flash_attention_plain
+
+    def spy(q, k, v):
+        calls.append(q.dtype)
+        return plain(q, k, v)
+    monkeypatch.setattr(A, "flash_attention_plain", spy)
+    model = port_trunk(sd)
+    assert model.dtype == torch.bfloat16
+    with torch.no_grad():
+        out = model(torch.tensor(img).bfloat16())
+    assert out.dtype == torch.bfloat16 and calls == [torch.bfloat16] * 9
+    got = out.float().numpy()
+    scale = np.abs(ref[False]).max()
+    assert np.abs(got - want).max() <= 1.2e-2 * scale
+    assert np.abs(got - want).mean() <= 2.5e-3 * scale
+
+
+def test_vis_trunk_computes_in_f32_from_bf16_weights(trunks, params):
+    """forward_vis under --dino_bf16 (the Trainer's _log_images): flax
+    applies the bf16 parameters to the f32 image, promoting every layer to
+    f32, so the panels' trunk is the f32 trunk on bf16-rounded weights. The
+    port's f32 copy of the bf16 trunk against it, within 1e-5 of the
+    features' largest entry (9e-7 measured); the f32 trunk on the
+    unrounded weights lies further away."""
+    img, sd, ref = trunks
+    want = np.asarray(jax.jit(JaxDino().apply)(
+        {"params": bf16_params(params)}, jnp.asarray(img)))
+    assert want.dtype == np.float32
+    vis = port_trunk(sd).float()
+    with torch.no_grad():
+        got = vis(torch.tensor(img)).numpy()
+    scale = np.abs(ref[False]).max()
+    assert np.abs(got - want).max() <= 1e-5 * scale
+    assert np.abs(ref[False] - want).max() > 1e-3 * scale

@@ -142,8 +142,26 @@ Phases, in order; any failure exits non-zero:
               rate); (iii) phase 12's Wild6D test split evaluated by two
               ranks on cuda:0 over gloo (8 rows each of the batch of 16)
               and by one: the six NOCS metrics equal. Then the fixtures
-              are removed, and the kernel table's JSON line and the result
-              line printed
+              are removed
+ 14. flags    the last trainer flags: --dino_bf16, --synthetic_on_device
+              with --steps_per_dispatch, --profile_steps
+ 15. tools    the command-line layer, in an emptied .work/tools removed at
+              the end: (a) tools/gen_priors writes the five committed
+              config/wild6d/priors/*.obj byte for byte; (b) scripts/train.sh
+              laptop <absent path> with SYNTH_FALLBACK=1 at full width
+              (laptop flag file, img 256, batch 8 x 4), 3 steps saving the
+              last (B1 = B2 = 3, B3 = 27), every logged loss finite; (c)
+              scripts/predict.sh of that checkpoint on a Wild6D fixture,
+              its list config/wild6d/lists/laptop_test.txt written by
+              tools/gen_lists (a list already there is set aside and put
+              back), six finite NOCS metrics (no kernel: no --vis_pred);
+              (d) tools/validate_synthetic at img 128, 100 steps, saving at
+              50 and 100, evaluating both: two JSON lines with finite
+              metrics, the loss at step 100 below step 1's (B1 = B2 = 100,
+              B3 = 900). The shell scripts' launches are counted through a
+              `python` on PATH that runs this file's --count-launches mode.
+              Then the kernel table's JSON line and the result line are
+              printed
 
 Tolerances, B1 (kernel vs plain): alpha 2e-3, depth 1.4e-2 absolute; tex /
 match 3.8e-3 relative to max(1, |plain|), which is absolute for colours in
@@ -3110,6 +3128,198 @@ def flags_phase(card: str, phase9_step_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the command-line layer
+# ---------------------------------------------------------------------------
+
+TOOLS_WORK = os.path.join(ROOT, ".work", "tools")   # removed after
+TEST_LIST = os.path.join(ROOT, "config", "wild6d", "lists", "laptop_test.txt")
+COUNT_FLAG = "--count-launches"
+
+
+def count_launches(argv) -> int:
+    """This file's mode behind the counting `python` (counting_env): `-m
+    <module> args` runs the module as `python -m` does and appends the
+    kernels' launch counts of the run to $LAUNCHES_OUT as one JSON line,
+    also when the module exits with an error; any other command line runs
+    the interpreter itself."""
+    if argv[:1] != ["-m"] or len(argv) < 2:
+        os.execv(sys.executable, [sys.executable, *argv])
+    import runpy
+    module = argv[1]
+    sys.argv = [module, *argv[2:]]
+    sys.path.insert(0, os.getcwd())
+    try:
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+    finally:
+        with open(os.environ["LAUNCHES_OUT"], "a") as f:
+            f.write(json.dumps({"module": module,
+                                "launches": read_launches()}) + "\n")
+    return 0
+
+
+def counting_env(bin_dir: str, out: str) -> dict:
+    """An environment whose `python` is this interpreter running this
+    file's count_launches mode, so a shell script's runs are counted."""
+    os.makedirs(bin_dir, exist_ok=True)
+    shim = os.path.join(bin_dir, "python")
+    with open(shim, "w") as f:
+        f.write(f'#!/bin/sh\nexec "{sys.executable}" '
+                f'"{os.path.abspath(__file__)}" {COUNT_FLAG} "$@"\n')
+    os.chmod(shim, 0o755)
+    return dict(os.environ, PATH=bin_dir + os.pathsep + os.environ["PATH"],
+                LAUNCHES_OUT=out)
+
+
+def run_script(script: str, args, env: dict, tag: str, module: str):
+    """bash selfcorr_tpu_torch/scripts/<script> args under `env`; fails
+    unless it exits 0. Returns (its stdout, the launches of its run of
+    `module`)."""
+    t0 = time.time()
+    out = subprocess.run(
+        ["bash", os.path.join(ROOT, "selfcorr_tpu_torch", "scripts",
+                              script), *args],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    with open(os.path.join(OUT, f"tools_{tag}.log"), "w") as f:
+        f.write(out.stdout + "\n--- stderr ---\n" + out.stderr)
+    if out.returncode != 0:
+        fail(f"{script} exited {out.returncode}: {out.stderr[-2000:]}")
+    runs = []
+    if os.path.isfile(env["LAUNCHES_OUT"]):
+        with open(env["LAUNCHES_OUT"]) as f:
+            runs = [json.loads(ln) for ln in f]
+        os.remove(env["LAUNCHES_OUT"])
+    mine = [r["launches"] for r in runs if r["module"] == module]
+    if len(mine) != 1:
+        fail(f"{script}: {len(mine)} counted runs of {module} ({runs})")
+    print(f"[tools] {script} {' '.join(args)}: {time.time() - t0:.1f} s, "
+          f"launches {mine[0]}", flush=True)
+    return out.stdout, mine[0]
+
+
+def tools_priors() -> dict:
+    """(a) the port's gen_priors into an empty directory: the five
+    committed priors byte for byte."""
+    from selfcorr_tpu_torch.tools import gen_priors
+    out = os.path.join(TOOLS_WORK, "priors")
+    gen_priors.main(out)
+    cats = sorted(gen_priors.GENERATORS)
+    same = {}
+    for c in cats:
+        with open(os.path.join(out, f"{c}.obj"), "rb") as a, open(
+                os.path.join(ROOT, "config", "wild6d", "priors",
+                             f"{c}.obj"), "rb") as b:
+            same[c] = a.read() == b.read()
+    print(f"[tools] gen_priors: byte for byte the committed prior {same}",
+          flush=True)
+    if len(cats) != 5 or not all(same.values()):
+        fail(f"gen_priors differs from config/wild6d/priors: {same}")
+    return same
+
+
+def tools_phase(card: str) -> dict:
+    """Phase 15: (a) gen_priors; (b) train.sh with SYNTH_FALLBACK=1 at full
+    width, 3 steps saving the last (B1 = B2 = 3, B3 = 27); (c) predict.sh
+    of that checkpoint on a Wild6D fixture, its list written by gen_lists
+    (six finite NOCS metrics); (d) tools/validate_synthetic at img 128, 100
+    steps, checkpoints at 50 and 100 (B1 = B2 = 100, B3 = 900): two JSON
+    lines, every logged loss finite, the loss at step 100 below step 1's,
+    finite metrics. Launches are counted per run, the shell scripts'
+    through a counting `python` on PATH."""
+    from selfcorr_tpu_torch.data import fixtures as FX
+    from selfcorr_tpu_torch.tools import gen_lists
+    from selfcorr_tpu_torch.tools import validate_synthetic as V
+    t_phase = time.time()
+    shutil.rmtree(TOOLS_WORK, ignore_errors=True)
+    res = {"priors": tools_priors()}
+    env = counting_env(os.path.join(TOOLS_WORK, "bin"),
+                       os.path.join(TOOLS_WORK, "launches.jsonl"))
+    log = os.path.join(TOOLS_WORK, "log")
+
+    # (b)
+    text, res["train_sh_launches"] = run_script(
+        "train.sh", ["laptop", os.path.join(TOOLS_WORK, "absent"), "smoke",
+                     "--total_iters", "3", "--save_freq", "3",
+                     "--batch_log_interval", "1", "--checkpoint_dir", log],
+        dict(env, SYNTH_FALLBACK="1"), "train_sh",
+        "selfcorr_tpu_torch.train")
+    losses = [float(ln.split()[3]) for ln in text.splitlines()
+              if ln.startswith("iter ")]
+    if res["train_sh_launches"] != dp_want(3) or len(losses) != 3 or not \
+            all(map(math.isfinite, losses)):
+        fail(f"train.sh: launches {res['train_sh_launches']}, losses "
+             f"{losses}")
+    res["train_sh_losses"] = losses
+
+    # (c) the list is written by gen_lists through predict.sh: a list
+    # already there is set aside and put back after
+    w6d = os.path.join(TOOLS_WORK, "w6d")
+    _, test_root = FX.wild6d_tree(w6d, frames_per_video=2)
+    kept = os.path.join(TOOLS_WORK, "kept_test_list")
+    if os.path.isfile(TEST_LIST):
+        shutil.move(TEST_LIST, kept)
+    try:
+        text, res["predict_sh_launches"] = run_script(
+            "predict.sh", ["laptop", w6d,
+                           os.path.join(log, "smoke", "ckpt"),
+                           "--checkpoint_dir", log], env, "predict_sh",
+            "selfcorr_tpu_torch.predict")
+        with open(TEST_LIST) as f:
+            listed = f.read().split()
+    finally:
+        if os.path.isfile(kept):
+            shutil.move(kept, TEST_LIST)
+        elif os.path.isfile(TEST_LIST):
+            os.remove(TEST_LIST)
+    if listed != gen_lists.enumerate_videos(test_root):
+        fail(f"predict.sh's list {listed}")
+    metrics = {}
+    for ln in text.splitlines():
+        k, _, v = ln.partition(": ")
+        if k in NOCS_KEYS:
+            metrics[k] = float(v)
+    print(f"[tools] predict.sh on the Wild6D fixture ({len(listed)} "
+          f"videos): {metrics}", flush=True)
+    if sorted(metrics) != sorted(NOCS_KEYS) or not all(
+            map(math.isfinite, metrics.values())):
+        fail(f"predict.sh metrics {metrics}")
+    res["predict_sh_metrics"] = metrics
+
+    # (d)
+    t0 = time.time()
+    reset_launches()
+    final, trajectory, trainer = V.run(V.parse_args([
+        "--img_size", "128", "--iters", "100", "--save_freq", "50",
+        "--eval_steps", "50", "--set", "batch_log_interval=1",
+        "--out_dir", os.path.join(TOOLS_WORK, "validate")]))
+    torch.cuda.synchronize()
+    res["validate_launches"] = read_launches()
+    logged = [v["total_loss"] for _, v in trainer.logged]
+    del trainer
+    lines = trajectory + [final]
+    keys = NOCS_KEYS + ("median_iou", "median_deg", "median_cm")
+    print(f"[tools] validate_synthetic img 128, 100 steps: "
+          f"{time.time() - t0:.1f} s, launches {res['validate_launches']}; "
+          f"loss step 1 {logged[0]:.6f}, step 100 {logged[-1]:.6f}; "
+          + " | ".join(json.dumps(ln) for ln in lines), flush=True)
+    if (res["validate_launches"] != dp_want(100) or len(logged) != 100
+            or not all(map(math.isfinite, logged))
+            or not logged[-1] < logged[0] or len(lines) != 2
+            or [ln["iters"] for ln in lines] != [50, 100]
+            or not all(math.isfinite(ln[k]) for ln in lines for k in keys)):
+        fail(f"validate_synthetic: launches {res['validate_launches']}, "
+             f"{len(logged)} losses, lines {lines}")
+    res.update(validate_lines=lines, validate_loss_first=logged[0],
+               validate_loss_last=logged[-1])
+    res["seconds"] = time.time() - t_phase
+    print(f"[tools] phase 15 in {res['seconds']:.1f} s on {card}; launches "
+          f"train.sh {res['train_sh_launches']}, predict.sh "
+          f"{res['predict_sh_launches']}, validate_synthetic "
+          f"{res['validate_launches']}", flush=True)
+    shutil.rmtree(TOOLS_WORK, ignore_errors=True)
+    return res
+
+
 def device_setup():
     """Require CUDA; print the card's name and power limit and the torch
     build; work from the repo's root with float32 precision. Returns
@@ -3232,10 +3442,14 @@ def main() -> int:
         phase("the last trainer flags: --dino_bf16, --synthetic_on_device, "
               "--profile_steps")
         flags = flags_phase(smi, steps["train"][0])
+        phase("the command-line layer: gen_priors, train.sh, predict.sh "
+              "and gen_lists, validate_synthetic")
+        tools = tools_phase(smi)
     finally:
         shutil.rmtree(FIXTURES, ignore_errors=True)
         shutil.rmtree(DP_WORK, ignore_errors=True)
         shutil.rmtree(FLAGS_WORK, ignore_errors=True)
+        shutil.rmtree(TOOLS_WORK, ignore_errors=True)
         drop_checkpoints()
     launches.update({p: data[f"{p}_launches"] for p in (
         "w6d_train", "w6d_train_long", "w6d_train_long_threads", "w6d_vis",
@@ -3250,6 +3464,8 @@ def main() -> int:
                      "bf16_log_images": flags["bf16"]["vis_launches"],
                      **flags["devsynth"]["launches"],
                      "profile": flags["profile"]["launches"]})
+    launches.update({f"tools_{k}": tools[f"{k}_launches"]
+                     for k in ("train_sh", "predict_sh", "validate")})
     summary = {"card": smi, "build_s": build_s, "resource_usage": usage,
                "fwd_sass_lds": lds,
                "predict_ms_per_batch": per_batch * 1e3,
@@ -3264,7 +3480,7 @@ def main() -> int:
                "train_profile": {p: s[2] for p, s in steps.items()},
                "train_step_parity": parity, "train_paths": main_costs,
                "checkpoint": ckpt_res, "data": data, "data_parallel": dp,
-               "flags": flags}
+               "flags": flags, "tools": tools}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     rows = []
@@ -3302,4 +3518,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [COUNT_FLAG]:
+        sys.exit(count_launches(sys.argv[2:]))
     sys.exit(main())

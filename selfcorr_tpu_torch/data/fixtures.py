@@ -5,7 +5,7 @@ utils/imageio (Pillow), in the layouts the readers take:
                videos and their exact GT poses in the test pkl
                (counterpart of scripts/gen_wild6d_fixture.py generate);
   write_list   a Wild6D list file of every <obj>/<seq>/images video under a
-               root (counterpart of scripts/gen_lists.py);
+               root (data/wild6d.py's, re-exported);
   nocs_tree    one NOCS scene (data/nocs.py): random frames, one laptop
                instance and one bottle (the laptop's `occ`), labels, and
                obj_models/real_test.pkl beside the root (after
@@ -30,7 +30,7 @@ import pickle
 import numpy as np
 
 from selfcorr_tpu_torch.data.synthetic import SyntheticVideos, _rot_x, _rot_y
-from selfcorr_tpu_torch.data.wild6d import _subdirs
+from selfcorr_tpu_torch.data.wild6d import write_list
 from selfcorr_tpu_torch.utils.imageio import write_jpeg, write_png
 
 
@@ -95,20 +95,6 @@ def wild6d_tree(root: str, cat: str = "laptop", n_train_videos: int = 4,
         with open(os.path.join(pkl_dir, f"{cat}-{obj}-{seq}.pkl"), "wb") as f:
             pickle.dump({"annotations": annos}, f)
     return train_root, test_root
-
-
-def write_list(root: str, out_path: str) -> int:
-    """`<obj index>_<seq index>` of every <root>/<obj>/<seq>/images, one a
-    line, to out_path; returns the number of videos."""
-    tokens = [f"{oi}_{si}" for oi, obj in enumerate(_subdirs(root))
-              for si, seq in enumerate(_subdirs(os.path.join(root, obj)))
-              if os.path.isdir(os.path.join(root, obj, seq, "images"))]
-    if not tokens:
-        raise FileNotFoundError(f"no <object>/<sequence>/images/ under {root}")
-    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
-    with open(out_path, "w") as f:
-        f.write("\n".join(tokens) + "\n")
-    return len(tokens)
 
 
 def nocs_tree(root: str, n_frames: int = 3, hw=(48, 64), seed: int = 1):

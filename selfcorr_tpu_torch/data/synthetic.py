@@ -1,6 +1,7 @@
 """Synthetic video dataset: ray-traced textured ellipsoids with
 ground-truth poses (the port's own copy of the SyntheticVideos /
-SyntheticTest part of selfcorr_tpu/data/synthetic.py).
+SyntheticTest part of selfcorr_tpu/data/synthetic.py), and the duo shape's
+prior mesh (duo_prior_mesh).
 
 Each 'video' is one ellipsoid instance (random per-axis radii, procedural
 texture) under a smoothly varying rotation; frames provide RGB, mask, metric
@@ -13,6 +14,21 @@ import numpy as np
 
 from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.data.crops import crop_frame
+
+
+def duo_prior_mesh(subdivide: int = 2):
+    """The shape prior of shape='duo': two merged icospheres with the duo
+    family's mean proportions (radius r = 0.75, the small lobe of radius
+    r * 0.5 centred r * 1.1 along +x), in the ray tracer's object frame, so
+    the learned canonical frame is identifiable. Returns (verts float64
+    (V, 3), faces int64 (F, 3))."""
+    from selfcorr_tpu_torch.ops.mesh_ops import icosphere
+    v, f = icosphere(subdivide)
+    r = 0.75
+    small = v * (r * 0.5) + np.array([r * 1.1, 0.0, 0.0])
+    verts = np.concatenate([v * r, small]).astype(np.float64)
+    faces = np.concatenate([f, f + len(v)]).astype(np.int64)
+    return verts, faces
 
 
 def _rot_y(t):

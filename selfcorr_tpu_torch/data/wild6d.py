@@ -8,7 +8,9 @@ Layout (reference data/dataset_wild6d.py, dataset_wild6d_test.py):
   each frame's GT rotation, translation and size.
 
 A list file names videos as `..._<object index>_<sequence index>` into the
-sorted directory listings (scripts/gen_lists.py writes such lists).
+sorted directory listings; enumerate_videos / write_list write the whole
+enumeration of a root as such a list (tools/gen_lists.py is its command
+line).
 Training draws, per step, cfg.batch_size videos and cfg.repeat frames of
 each, spread over the video, and each frame's crop scale U(1.2, 1.5) in
 sample_plan, in plan order (see SyntheticTrain). Images decode through
@@ -33,6 +35,28 @@ def _subdirs(path: str):
     """Sorted directories of `path`; stray files cannot shift the index."""
     return sorted(d for d in os.listdir(path)
                   if os.path.isdir(os.path.join(path, d)))
+
+
+def enumerate_videos(root: str) -> list[str]:
+    """`<obj_idx>_<seq_idx>` of every <root>/<obj>/<seq> with an images/
+    directory, indexing the sorted listings as Wild6DVideos resolves
+    them."""
+    return [f"{oi}_{si}" for oi, obj in enumerate(_subdirs(root))
+            for si, seq in enumerate(_subdirs(os.path.join(root, obj)))
+            if os.path.isdir(os.path.join(root, obj, seq, "images"))]
+
+
+def write_list(root: str, out_path: str) -> int:
+    """Write root's enumeration to out_path, one token a line; returns the
+    number of videos. Raises FileNotFoundError when root holds none."""
+    tokens = enumerate_videos(root)
+    if not tokens:
+        raise FileNotFoundError(
+            f"no <object>/<sequence>/images/ videos under {root}")
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "w") as f:
+        f.write("\n".join(tokens) + "\n")
+    return len(tokens)
 
 
 class Wild6DVideos:

@@ -179,9 +179,12 @@ class Tester:
                         sample_u=u)
         return pred, fit
 
-    def test(self) -> dict:
+    def test(self, dataset=None) -> dict:
+        """Evaluate `dataset` (by default the cfg's test split,
+        make_test_dataset) and return the metrics."""
         cfg = self.cfg
-        dataset = make_test_dataset(cfg)
+        if dataset is None:
+            dataset = make_test_dataset(cfg)
         loader = TestLoader(dataset, cfg, self.row_range)
         acc = NocsAccumulator(cfg.symmetry_idx) if cfg.eval_nocs else None
         cub_iou, cub_pck = [], []

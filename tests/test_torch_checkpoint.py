@@ -34,6 +34,7 @@ from selfcorr_tpu_torch.data.loader import compress_batch_host
 from selfcorr_tpu_torch.train.step import train_step
 from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils import logging as L
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAPTOP = os.path.join(ROOT, "config/wild6d/laptop.txt")

@@ -29,6 +29,7 @@ from selfcorr_tpu_torch.eval.tester import Tester, make_test_dataset
 from selfcorr_tpu_torch.ops.geometry import matrix_to_quat
 from test_cub_dataset import make_cub_tree
 from test_torch_datasets import assert_items_equal, same_draws
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 TINY = dict(img_size=32, corr_h=8, corr_w=8, subdivide=1, batch_size=4,
             repeat=1, n_corr_feat=16, codedim=8, pretrain_k=8,

@@ -30,6 +30,7 @@ from selfcorr_tpu_torch.ops.rasterizer.reference import (
     BWD_GRADS, PLANES, raster_fused_bwd_chunk_plain, raster_fused_bwd_plain,
     raster_fused_fwd_chunk_plain, raster_fused_fwd_plain)
 from selfcorr_tpu_torch.utils.device import set_fp32_precision
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 # kernel vs plain, absolute: the on-chip gate's bounds of the JAX package
 # (alpha 2e-3, tex / match 3.8e-3, depth 1.4e-2); softmax maxima 1e-4;

@@ -36,6 +36,7 @@ from selfcorr_tpu_torch.models.meshnet import MeshNet
 from selfcorr_tpu_torch.train.loop import Trainer
 from selfcorr_tpu_torch.utils import imageio as io
 from selfcorr_tpu_torch.utils import weight_convert as WC
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

@@ -20,6 +20,7 @@ from selfcorr_tpu_torch.data.synthetic import SyntheticTest
 from selfcorr_tpu_torch.eval import tester as T
 from selfcorr_tpu_torch.utils.imageio import read_unchanged
 from test_torch_slice import SMALL
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def panel_cfg(tmp_path):

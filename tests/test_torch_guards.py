@@ -15,6 +15,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "selfcorr_tpu"}
@@ -55,7 +56,10 @@ def test_port_imports_no_jax_cv2_or_jax_package():
             "selfcorr_tpu_torch/ops/knn.py",
             "selfcorr_tpu_torch/losses/regularizers.py",
             "selfcorr_tpu_torch/utils/cuda_build.py",
-            "selfcorr_tpu_torch/parallel/__init__.py"} <= names
+            "selfcorr_tpu_torch/parallel/__init__.py",
+            "selfcorr_tpu_torch/tools/gen_priors.py",
+            "selfcorr_tpu_torch/tools/gen_lists.py",
+            "selfcorr_tpu_torch/tools/validate_synthetic.py"} <= names
     bad = [(os.path.relpath(p, ROOT), m) for p in files
            for m in imported_roots(p) if m in FORBIDDEN]
     assert not bad, bad
@@ -70,6 +74,50 @@ def test_import_scan_catches_forbidden_imports(tmp_path):
                                                       "cv2"}
 
 
+# what a port shell script may not run: JAX, the JAX package's entry points
+# and anything of its scripts/ directory (a path that starts there, not the
+# port's own selfcorr_tpu_torch/scripts/)
+SHELL_FORBIDDEN = (r"\bimport jax\b", r"(?<![\w/.-])(train|predict)\.py\b",
+                   r"(?<![\w/.-])(\./)?scripts/")
+
+
+def shell_runs_jax_side(path):
+    """(line number, line) of each command line of a shell script (comments
+    and echo lines aside) that runs something of the JAX side."""
+    import re
+    out = []
+    for i, line in enumerate(open(path).read().splitlines(), 1):
+        code = line.strip()
+        if code.startswith("#") or code.startswith("echo "):
+            continue
+        if any(re.search(p, code) for p in SHELL_FORBIDDEN):
+            out.append((i, code))
+    return out
+
+
+def test_port_shell_scripts_run_nothing_of_the_jax_side():
+    scripts = sorted(glob.glob(os.path.join(
+        ROOT, "selfcorr_tpu_torch", "scripts", "*.sh")))
+    assert [os.path.basename(p) for p in scripts] == ["predict.sh",
+                                                      "train.sh"]
+    bad = {os.path.basename(p): shell_runs_jax_side(p) for p in scripts}
+    assert not any(bad.values()), bad
+
+
+def test_shell_scan_catches_jax_side_commands(tmp_path):
+    p = tmp_path / "x.sh"
+    p.write_text('# scripts/train.sh in a comment\n'
+                 'echo "see scripts/predict.sh"\n'
+                 'ndev=$(python -c "import jax; print(1)")\n'
+                 'python scripts/gen_priors.py\n'
+                 'python train.py --flagfile x\n'
+                 'python predict.py --test\n'
+                 'bash ./scripts/train.sh\n'
+                 'python -m selfcorr_tpu_torch.train\n'
+                 'bash selfcorr_tpu_torch/scripts/predict.sh\n')
+    assert [i for i, _ in shell_runs_jax_side(str(p))] == [3, 4, 5, 6, 7]
+
+
 def test_predict_without_cpu_flag_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -77,6 +125,16 @@ def test_predict_without_cpu_flag_needs_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         predict.main(["predict", "--flagfile", LAPTOP,
                       "--dataset_name", "synthetic"])
+
+
+def test_validate_synthetic_without_cpu_flag_needs_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from selfcorr_tpu_torch.tools import validate_synthetic as V
+    with pytest.raises(RuntimeError, match="CUDA"):
+        V.main(["--img_size", "32", "--iters", "1", "--out_dir",
+                str(tmp_path)])
+    assert not os.listdir(tmp_path)        # nothing written before it
 
 
 def test_train_without_cpu_flag_needs_cuda():

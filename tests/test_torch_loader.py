@@ -24,6 +24,7 @@ from selfcorr_tpu_torch.data import fixtures as FX
 from selfcorr_tpu_torch.data.loader import TrainLoader, compress_batch_host
 from selfcorr_tpu_torch.ops.geometry import matrix_to_quat
 from selfcorr_tpu_torch.train.loop import make_train_dataset
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def children():

@@ -8,6 +8,8 @@ pooled logits carry -1e5 times a bilinearly resized off-mask fraction, so
 one ulp of that fraction (the two packages resize with different
 arithmetic) moves a logit by ~6e-3 before the x10 temperature.
 """
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -27,6 +29,7 @@ from selfcorr_tpu_torch.models import correspondence as corr
 from selfcorr_tpu_torch.models.resnet import BatchNorm, frozen_stats
 from selfcorr_tpu_torch.ops import image_ops as I
 from selfcorr_tpu_torch.ops import knn, mesh_ops as M
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 RNG = np.random.RandomState(0)
 
@@ -167,7 +170,7 @@ def test_symmetry_loss_does_not_depend_on_the_thread_count():
     rots = t(symmetry_rotations(0))
     threads = torch.get_num_threads()
     got = []
-    for n in (1, max(threads, 2)):
+    for n in (1, max(os.cpu_count() or 1, 2)):
         torch.set_num_threads(n)
         try:
             vt = t(v).requires_grad_(True)

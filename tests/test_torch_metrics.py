@@ -13,6 +13,7 @@ from selfcorr_tpu.eval.metrics import NocsAccumulator as JaxAccumulator
 from selfcorr_tpu_torch.eval import box3d_native as native
 from selfcorr_tpu_torch.eval.box3d import Box3D, box_iou
 from selfcorr_tpu_torch.eval.metrics import NocsAccumulator
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 def box_pairs(n, seed):

@@ -20,6 +20,7 @@ from selfcorr_tpu.models import resnet as JR
 from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.models import heads, meshnet, pointnet, resnet
 from selfcorr_tpu_torch.utils import weight_convert as W
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 SMALL = dict(img_size=32, corr_h=8, corr_w=8, n_corr_feat=16, codedim=8,

@@ -32,6 +32,7 @@ from selfcorr_tpu_torch.ops import image_ops as I
 from selfcorr_tpu_torch.ops import mesh_ops as MO
 from selfcorr_tpu_torch.ops import umeyama as U
 from selfcorr_tpu_torch.utils import imageio
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 LAPTOP = "config/wild6d/laptop.txt"
 

@@ -48,12 +48,15 @@ from selfcorr_tpu_torch.train.step import init_state, train_step
 from selfcorr_tpu_torch.utils import weight_convert as W
 from test_torch_train_step import (TINY, jax_draws, merged_moments,
                                    np_batch)
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
+from test_torch_threads import thread_env
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(ROOT, "tests")
 RANKS = 2
 ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-    [ROOT, TESTS] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    [ROOT, TESTS] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+           **thread_env())
 
 
 # ---------------------------------------------------------------------------

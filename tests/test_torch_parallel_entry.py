@@ -23,13 +23,16 @@ import torch
 
 from selfcorr_tpu_torch import parallel as P
 from selfcorr_tpu_torch.configs import Config
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
+from test_torch_threads import thread_env
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TESTS = os.path.join(ROOT, "tests")
 LAPTOP = os.path.join(ROOT, "config/wild6d/laptop.txt")
 RANKS = 2
 ENV = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=os.pathsep.join(
-    [ROOT, TESTS] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    [ROOT, TESTS] + [p for p in [os.environ.get("PYTHONPATH")] if p]),
+           **thread_env())
 
 
 def in_subprocess(code: str, timeout: int = 600):

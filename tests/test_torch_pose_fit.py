@@ -17,6 +17,7 @@ from selfcorr_tpu.eval.pose_fit import fit_poses as jax_fit_poses
 from selfcorr_tpu.ops.geometry import rot6d_to_matrix
 from selfcorr_tpu_torch.eval.pose_fit import fit_poses, select_points
 from selfcorr_tpu_torch.ops.umeyama import draw_samples
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 B, H, W = 4, 32, 32
 BASE_ROT = np.array([0, 0, 1, 0, -1, 0, -1, 0, 0], np.float32).reshape(3, 3)

@@ -26,6 +26,7 @@ from selfcorr_tpu.ops.rasterizer.reference import render_fused_dense
 from selfcorr_tpu_torch.ops.rasterizer import api, common as C, kernel
 from selfcorr_tpu_torch.ops.rasterizer.reference import (
     PLANES, raster_fused_fwd_plain)
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 ATOL = {"alpha1": 2e-3, "alpha2": 2e-3, "depth": 2e-2,
         "texr": 2e-3, "texg": 2e-3, "texb": 2e-3,

@@ -34,6 +34,7 @@ from selfcorr_tpu.ops.rasterizer import render_fused as jax_render_fused
 from selfcorr_tpu_torch.ops.rasterizer import api, common as C, kernel
 from selfcorr_tpu_torch.ops.rasterizer.reference import (
     BWD_GRADS, BWD_PLANES, raster_fused_bwd_plain, raster_fused_fwd_plain)
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIGMAS = (1e-4, 1e-3, 1e-4, 1e-2)
 

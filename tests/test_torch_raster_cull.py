@@ -22,6 +22,7 @@ from selfcorr_tpu_torch.ops.rasterizer import api, common as C, kernel
 from selfcorr_tpu_torch.ops.rasterizer.chunks import (tiles_for,
                                                       visited_chunks)
 from selfcorr_tpu_torch.ops.rasterizer.reference import _pair_geometry
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SIGMA1, SIGMA2 = 1e-4, 1e-3
 CSRC = os.path.join(os.path.dirname(kernel.SOURCES["raster_fused_fwd"]))

@@ -23,6 +23,7 @@ from selfcorr_tpu_torch.eval.tester import Tester, make_test_dataset
 from selfcorr_tpu_torch.models.meshnet import MeshNet
 from selfcorr_tpu_torch.utils import weight_convert as W
 from selfcorr_tpu_torch.utils.imageio import read_unchanged
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SMALL = dict(dataset_name="synthetic", img_size=32, corr_h=8, corr_w=8,
              subdivide=1, batch_size=4, repeat=1, symmetry_idx=0,

@@ -33,6 +33,7 @@ from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.data import synthetic_device as SD
 from selfcorr_tpu_torch.data.synthetic import SyntheticVideos
 from selfcorr_tpu_torch.train.loop import Trainer
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 TINY = dict(dataset_name="synthetic", img_size=32, corr_h=8, corr_w=8,
             subdivide=1, batch_size=2, repeat=2, pretrain_k=8, codedim=8,

@@ -52,6 +52,7 @@ from selfcorr_tpu_torch.train import loop
 from selfcorr_tpu_torch.utils import vis as V
 from selfcorr_tpu_torch.utils import weight_convert as W
 from test_torch_slice import jitter_factors, randomize_stats
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 TINY_VIS = dict(img_size=32, corr_h=8, corr_w=8, subdivide=1, batch_size=2,
                 repeat=2, total_iters=10, symmetry_idx=0, symmetry_npts=128,

@@ -34,6 +34,7 @@ from selfcorr_tpu.models.vit import DinoViTS8 as JaxDino
 from selfcorr_tpu_torch.models.vit import DinoViTS8
 from selfcorr_tpu_torch.ops import attention as A
 from selfcorr_tpu_torch.utils import weight_convert as W
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -35,6 +35,7 @@ from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils import weight_convert as W
 from tests.test_torch_parity import _make_dino_sd, make_reference_sd
 from tests.test_torch_slice import jitter_factors, randomize_stats
+from test_torch_threads import share_cores  # noqa: F401 (autouse)
 
 SMALL = dict(dataset_name="synthetic", img_size=32, corr_h=8, corr_w=8,
              subdivide=1, batch_size=4, repeat=1, symmetry_idx=0,

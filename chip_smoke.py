@@ -994,6 +994,7 @@ def slice_phase():
 
 def fps_and_cpu_parity(cfg, card: str):
     from selfcorr_tpu_torch.data.loader import TestLoader
+    from selfcorr_tpu_torch.eval.metrics import rotation_spread
     from selfcorr_tpu_torch.eval.tester import Tester, make_test_dataset
     from selfcorr_tpu_torch.models.meshnet import forward_test
 
@@ -1034,7 +1035,50 @@ def fps_and_cpu_parity(cfg, card: str):
     if bad:
         fail(f"forward_test on cuda disagrees with the CPU beyond 1e-3: "
              f"{bad}")
-    return per_batch, fps, breakdown
+    valid = np.asarray(batch["valid"], bool)
+    spreads = {"head": rotation_spread(gpu["rotation"].cpu().numpy()[valid]),
+               "truth": rotation_spread(np.asarray(batch["rot_gt"])[valid]),
+               "frames": int(valid.sum())}
+    return per_batch, fps, breakdown, spreads
+
+
+def init_phase(spreads: dict) -> dict:
+    """The port's initialization on the card: init_state(cfg, ..., "cuda")
+    at the compact path's width holds, bit for bit, the weights that it
+    builds on the CPU from the same seed (models/init.py draws on the
+    CPU); and how far the rotation head's answers spread on the predict
+    slice's batch at the predict path's random weights (ROADMAP C.17: one
+    pose for every frame reads near 0)."""
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.models.meshnet import build_mesh_constants
+    from selfcorr_tpu_torch.train.step import init_state
+
+    cfg = parse_args(TRAIN_ARGS).replace(device="cuda")
+    constants = build_mesh_constants(cfg)
+    t0 = time.time()
+    card = init_state(cfg, constants, "cuda")
+    init_s = time.time() - t0
+    cpu = init_state(cfg, constants, "cpu")
+    differ, n = [], 0
+    for part in ("model", "dino"):
+        want = getattr(cpu, part).state_dict()
+        for k, v in getattr(card, part).state_dict().items():
+            n += 1
+            if v.device.type != "cuda" or not torch.equal(v.cpu(), want[k]):
+                differ.append(f"{part}.{k}")
+    print(f"[init] init_state(cfg, ..., \"cuda\") at seed {cfg.seed}: "
+          f"{n - len(differ)} of {n} tensors (model and DINO trunk) bit for "
+          f"bit the CPU's from the same seed; {init_s:.2f} s", flush=True)
+    if differ:
+        fail(f"init_state on the card differs from the CPU's: {differ[:5]}")
+    print(f"[init] rotation head spread on the predict slice's batch "
+          f"({spreads['frames']} frames, random weights of seed "
+          f"{cfg.seed}): {spreads['head']:.2f} deg about its mean, the "
+          f"truth {spreads['truth']:.2f} deg", flush=True)
+    return {"tensors_equal": n, "init_state_s": init_s,
+            "head_spread_deg": spreads["head"],
+            "truth_spread_deg": spreads["truth"],
+            "frames": spreads["frames"]}
 
 
 def profile_calls(fn, reps: int, label: str, filename: str):
@@ -3390,7 +3434,7 @@ def main() -> int:
 
     phase("predict slice")
     cfg, predict_launches, captured = slice_phase()
-    per_batch, fps, breakdown = fps_and_cpu_parity(cfg, smi)
+    per_batch, fps, breakdown, spreads = fps_and_cpu_parity(cfg, smi)
     # every launch of the predict path, texture and depth-panel renders
     # alike, against the plain version on the same inputs
     errs, bad = {}, []
@@ -3428,6 +3472,8 @@ def main() -> int:
 
     phase("checkpoint, resume and imports")
     ckpt_res = checkpoint_phase(smi)
+    phase("the initialization on the card")
+    init_res = init_phase(spreads)
 
     phase("report")
     # B1' and B2' with texels at the surface path's inputs too
@@ -3480,7 +3526,7 @@ def main() -> int:
                "train_profile": {p: s[2] for p, s in steps.items()},
                "train_step_parity": parity, "train_paths": main_costs,
                "checkpoint": ckpt_res, "data": data, "data_parallel": dp,
-               "flags": flags, "tools": tools}
+               "flags": flags, "tools": tools, "init": init_res}
     with open(os.path.join(OUT, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
     rows = []

@@ -88,6 +88,18 @@ class NocsAccumulator:
         return out
 
 
+def rotation_spread(rots) -> float:
+    """How far rotations (N, 3, 3) spread: the median angle (degrees) to
+    their chordal mean, the SVD projection of their average onto the
+    rotations. A rotation head that answers one pose whatever the image
+    reads near 0 (ROADMAP C.17)."""
+    rots = np.asarray(rots, np.float64)
+    u, _, vt = np.linalg.svd(rots.mean(0))
+    mean = u @ np.diag([1.0, 1.0, np.linalg.det(u @ vt)]) @ vt
+    cos = (np.einsum("ij,nij->n", mean, rots) - 1.0) / 2.0
+    return float(np.median(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))))
+
+
 def mask_iou(mask_gt: np.ndarray, mask_pred: np.ndarray) -> np.ndarray:
     """(B, H, W) -> (B,) intersection over union."""
     inter = (mask_gt * mask_pred).sum(axis=(1, 2))

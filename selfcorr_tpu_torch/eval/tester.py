@@ -41,6 +41,7 @@ from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.data.loader import BATCH_KEYS, TestLoader
 from selfcorr_tpu_torch.eval.metrics import NocsAccumulator, map_kp, mask_iou
 from selfcorr_tpu_torch.eval.pose_fit import fit_poses
+from selfcorr_tpu_torch.models.init import init_model
 from selfcorr_tpu_torch.models.meshnet import (MeshNet, build_mesh_constants,
                                                forward_test)
 from selfcorr_tpu_torch.ops import geometry as G
@@ -77,14 +78,6 @@ def make_test_dataset(cfg: Config):
         return CUBTest(cfg)
     raise ValueError(f"unknown dataset {cfg.dataset_name!r}: Wild6D, "
                      f"synthetic, nocs or cub")
-
-
-def init_model(cfg: Config, constants) -> MeshNet:
-    """MeshNet with weights initialized from cfg.seed, on the CPU (so the
-    weights do not depend on the device)."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        return MeshNet(cfg, constants)
 
 
 def load_model(model: MeshNet, path: str) -> None:

@@ -34,10 +34,16 @@ class PosePredictor(nn.Module):
         self.rot_pred_layer = nn.Sequential(fc_stack, nn.Linear(128, 6))
         self.trans_pred_layer = nn.Linear(in_dim, 3)
         self.scale_pred_layer = nn.Linear(in_dim, 3) if use_scale else None
+        self.rotation_offset_init = [float(v) for v in rotation_offset]
         self.register_buffer("rotation_offset", torch.tensor(
-            [float(v) for v in rotation_offset], dtype=torch.float32),
+            self.rotation_offset_init, dtype=torch.float32),
             persistent=False)
         self.depth_offset = float(depth_offset)
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        """rotation_offset back to its value (models/init.py)."""
+        self.rotation_offset.copy_(torch.tensor(self.rotation_offset_init))
 
     def forward(self, feat):  # (B, 512)
         rot6 = self.rot_pred_layer(feat) + self.rotation_offset

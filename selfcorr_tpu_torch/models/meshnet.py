@@ -112,8 +112,13 @@ class Networks(nn.Module):
 class MeshParams(nn.Module):
     def __init__(self, mean_v_init: np.ndarray):
         super().__init__()
-        self.mean_v = nn.Parameter(torch.as_tensor(mean_v_init,
-                                                   dtype=torch.float32))
+        self.mean_v_init = np.asarray(mean_v_init, np.float32)
+        self.mean_v = nn.Parameter(torch.as_tensor(self.mean_v_init))
+
+    @torch.no_grad()
+    def reset_parameters(self):
+        """mean_v back to the prior (models/init.py)."""
+        self.mean_v.copy_(torch.as_tensor(self.mean_v_init))
 
 
 class MeshNet(nn.Module):

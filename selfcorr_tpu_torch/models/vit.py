@@ -123,9 +123,9 @@ class DinoViTS8(nn.Module):
         self.attn_bf16 = attn_bf16
         grid = img_size // patch_size
         self.patch_embed = PatchEmbed(dim, patch_size)
+        # zeros until models/init.py draws pos_embed, as flax does
         self.cls_token = nn.Parameter(torch.zeros(1, 1, dim))
-        self.pos_embed = nn.Parameter(
-            torch.randn(1, grid * grid + 1, dim) * 0.02)
+        self.pos_embed = nn.Parameter(torch.zeros(1, grid * grid + 1, dim))
         self.blocks = nn.ModuleList([Block(dim, num_heads)
                                      for _ in range(feature_layer + 1)])
 

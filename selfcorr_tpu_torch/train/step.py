@@ -17,6 +17,8 @@ from dataclasses import dataclass
 import torch
 
 from selfcorr_tpu_torch.configs import Config
+from selfcorr_tpu_torch.models.init import (build_like_jax, init_generator,
+                                            init_model)
 from selfcorr_tpu_torch.models.meshnet import (DeviceConstants, MeshConstants,
                                                MeshNet, StepDraws,
                                                device_constants,
@@ -40,21 +42,22 @@ class TrainState:
 def init_state(cfg: Config, constants: MeshConstants, device,
                model: MeshNet | None = None,
                dino: DinoViTS8 | None = None) -> TrainState:
-    """Model and DINO trunk initialized from cfg.seed on the CPU (so the
-    weights do not depend on the device), or the ones given; then, as the
-    JAX package's init_state does (selfcorr_tpu/train/step.py:57-65), the
+    """Model and DINO trunk initialized as the JAX package's are, from
+    cfg.seed on the CPU, so the weights do not depend on the device
+    (init_model, then the trunk from the same generator), or the ones
+    given; then, as the JAX package's init_state does
+    (selfcorr_tpu/train/step.py:57-65), the
     pretrained imports (--resnet_init_path, --dino_init_path) and the warm
     start (--warm_start_path), still on the CPU; with --dino_bf16 the
     frozen trunk cast to bfloat16 once, at rest (selfcorr_tpu/train/
     step.py:66-72); moved to `device`; the optimizer over the model's five
     groups, its moments at zero."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(cfg.seed)
-        if model is None:
-            model = MeshNet(cfg, constants)
-        if dino is None:
-            dino = DinoViTS8(img_size=cfg.img_size,
-                             attn_bf16=cfg.dino_attn_bf16)
+    generator = init_generator(cfg)
+    if model is None:
+        model = init_model(cfg, constants, generator)
+    if dino is None:
+        dino = build_like_jax(lambda: DinoViTS8(
+            img_size=cfg.img_size, attn_bf16=cfg.dino_attn_bf16), generator)
     load_pretrained_init(cfg, model, dino)
     if cfg.warm_start_path:
         load_warm_start(cfg, model)

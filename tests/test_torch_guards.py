@@ -118,6 +118,66 @@ def test_shell_scan_catches_jax_side_commands(tmp_path):
     assert [i for i, _ in shell_runs_jax_side(str(p))] == [3, 4, 5, 6, 7]
 
 
+# torch's global generator: what seeds it, and the draws that take it when
+# no generator= is passed (torch.<name>, and in-place draws on any tensor)
+GLOBAL_SEEDS = {"manual_seed", "manual_seed_all", "seed"}
+GLOBAL_DRAWS = {"rand", "randn", "randint", "randperm", "normal",
+                "rand_like", "randn_like", "randint_like", "multinomial",
+                "bernoulli", "poisson"}
+INPLACE_DRAWS = {"normal_", "uniform_", "bernoulli_", "random_",
+                 "exponential_", "geometric_", "log_normal_", "cauchy_"}
+
+
+def global_rng_calls(path):
+    """(line number, call) of each call in `path` that seeds torch's global
+    generator (torch.manual_seed, torch.random.* or torch.cuda.*) or draws
+    from it: a draw without a generator= keyword. A generator's own
+    manual_seed, and numpy's draws, are not torch's."""
+    tree = ast.parse(open(path).read(), path)
+    calls = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)):
+            continue
+        base, name = ast.unparse(node.func.value), node.func.attr
+        given = any(k.arg == "generator" for k in node.keywords)
+        if (base in ("torch", "torch.random", "torch.cuda")
+                and name in GLOBAL_SEEDS
+                or base == "torch" and name in GLOBAL_DRAWS and not given
+                or name in INPLACE_DRAWS and not given):
+            calls.append((node.lineno, ast.unparse(node.func)))
+    return sorted(calls)
+
+
+def test_port_draws_only_from_explicit_generators():
+    """No module of the port seeds or draws from torch's global generator
+    (its weights come from models/init.py's generator, every other draw
+    from a generator it is passed)."""
+    files = [p for p in port_files() if "selfcorr_tpu_torch" in p]
+    assert len(files) > 20
+    bad = {os.path.relpath(p, ROOT): global_rng_calls(p)
+           for p in files}
+    assert not any(bad.values()), {k: v for k, v in bad.items() if v}
+
+
+def test_rng_scan_catches_global_draws(tmp_path):
+    p = tmp_path / "x.py"
+    p.write_text("import numpy as np\nimport torch\n"
+                 "torch.manual_seed(0)\n"
+                 "a = torch.randn(3) * 0.02\n"
+                 "b = torch.rand((2, 5),\n"
+                 "               generator=g)\n"
+                 "g = torch.Generator().manual_seed(1)\n"
+                 "c = np.random.randint(0, 4)\n"
+                 "w.normal_(0, 1)\n"
+                 "torch.nn.init.normal_(w, generator=g)\n"
+                 "torch.cuda.manual_seed_all(3)\n"
+                 "d = torch.randint(0, 4, (3,), generator=g)\n")
+    assert global_rng_calls(str(p)) == [
+        (3, "torch.manual_seed"), (4, "torch.randn"), (9, "w.normal_"),
+        (11, "torch.cuda.manual_seed_all")]
+
+
 def test_predict_without_cpu_flag_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -52,6 +52,7 @@ from selfcorr_tpu_torch import parallel as P
 from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils.device import resolve_device
 from selfcorr_tpu_torch.utils.logging import write_config_snapshot
+from selfcorr_tpu_torch.utils.tracing import span
 from selfcorr_tpu_torch.utils.imageio import to_u8, write_png
 from selfcorr_tpu_torch.utils.vis import (draw_kp, panels_on,
                                           save_visualizations)
@@ -151,26 +152,29 @@ class Tester:
         global batch of world x as many. jitter (4,) and sample_idx (B,
         ransac_iters, 5) are the draws; absent ones come from the Tester's
         generator, for the global batch (jitter, then the RANSAC uniforms
-        of every row), of which this rank takes its rows."""
+        of every row), of which this rank takes its rows. The call is a
+        unit of utils/tracing.py, with its upload as a span."""
         cfg = self.cfg
-        tb = self.to_device(batch)
-        if jitter is None:
-            jitter = jitter_factors(self.generator)
-        u = None
-        if sample_idx is None:
-            b = len(batch["img"])
-            u = torch.rand((b * self.world, cfg.ransac_iters, 5),
-                           generator=self.generator)[
-                self.rank * b: (self.rank + 1) * b]
-        pred = forward_test(self.model, tb, self.constants, cfg,
-                            jitter=jitter, batch_sum=self.batch_sum)
-        fit = fit_poses(pred["match"], pred["match_conf"], tb["depth"],
-                        tb["mask"], tb["pp_crop"], tb["foc_crop"],
-                        pred["pred_v"], self.base_rot,
-                        max_points=cfg.pose_fit_max_points,
-                        n_iters=cfg.ransac_iters, sample_idx=sample_idx,
-                        sample_u=u)
-        return pred, fit
+        with span("predict_batch"):
+            with span("predict.upload"):
+                tb = self.to_device(batch)
+            if jitter is None:
+                jitter = jitter_factors(self.generator)
+            u = None
+            if sample_idx is None:
+                b = len(batch["img"])
+                u = torch.rand((b * self.world, cfg.ransac_iters, 5),
+                               generator=self.generator)[
+                    self.rank * b: (self.rank + 1) * b]
+            pred = forward_test(self.model, tb, self.constants, cfg,
+                                jitter=jitter, batch_sum=self.batch_sum)
+            fit = fit_poses(pred["match"], pred["match_conf"], tb["depth"],
+                            tb["mask"], tb["pp_crop"], tb["foc_crop"],
+                            pred["pred_v"], self.base_rot,
+                            max_points=cfg.pose_fit_max_points,
+                            n_iters=cfg.ransac_iters, sample_idx=sample_idx,
+                            sample_u=u)
+            return pred, fit
 
     def test(self, dataset=None) -> dict:
         """Evaluate `dataset` (by default the cfg's test split,

@@ -35,6 +35,7 @@ from selfcorr_tpu_torch.ops.image_ops import (color_jitter, grid_sample,
                                               jitter_factors)
 from selfcorr_tpu_torch.ops.rasterizer import render_fused
 from selfcorr_tpu_torch.ops.rasterizer.common import EYE_OFFSET
+from selfcorr_tpu_torch.utils.tracing import span
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -247,80 +248,83 @@ def forward_train(model: MeshNet, dino, batch: dict, dc: DeviceConstants,
     if cfg.shape_prior and not cfg.prior_deform:
         mean_v = mean_v.detach()
 
-    img_feat, mesh_feat, pred_v, rotation, translation, _ = model.encoder(
-        preprocess(img, draws.jitter), mean_v, batch["pp_crop"],
-        batch["foc_crop"])
-    meshgrid = corr.make_meshgrid(cfg.corr_h, cfg.corr_w, device=img.device)
-    _, match_map, imatch, _ = corr.dual_softmax_match(
-        img_feat, mesh_feat, mask, pred_v, meshgrid, cfg.tau_img,
-        cfg.tau_mesh, cfg.corr_h, cfg.corr_w)
-    # vertex colours sampled at the matched pixels; with surface_texture
-    # the render's texture pass takes per-face texel grids sampled at
-    # imatch-interpolated points instead
-    tex = grid_sample(img, imatch)
-    surf = (surface_texture(img, imatch, faces, cfg.n_tex_sample)
-            if cfg.surface_texture else None)
-    r = render_products(pred_v, faces, tex, batch["foc_crop"],
-                        batch["pp_crop"], rotation, translation, cfg,
-                        surf_tex=surf)
+    with span("forward.encode"):
+        img_feat, mesh_feat, pred_v, rotation, translation, _ = \
+            model.encoder(preprocess(img, draws.jitter), mean_v,
+                          batch["pp_crop"], batch["foc_crop"])
+        meshgrid = corr.make_meshgrid(cfg.corr_h, cfg.corr_w,
+                                      device=img.device)
+        _, match_map, imatch, _ = corr.dual_softmax_match(
+            img_feat, mesh_feat, mask, pred_v, meshgrid, cfg.tau_img,
+            cfg.tau_mesh, cfg.corr_h, cfg.corr_w)
+    with span("forward.render"):
+        # vertex colours sampled at the matched pixels; with surface_texture
+        # the render's texture pass takes per-face texel grids sampled at
+        # imatch-interpolated points instead
+        tex = grid_sample(img, imatch)
+        surf = (surface_texture(img, imatch, faces, cfg.n_tex_sample)
+                if cfg.surface_texture else None)
+        r = render_products(pred_v, faces, tex, batch["foc_crop"],
+                            batch["pp_crop"], rotation, translation, cfg,
+                            surf_tex=surf)
 
-    occ = batch.get("occ") if cfg.use_occ else None
-    mask_l = w["mask"] * mask_pyramid_loss(mask, r["mask_render"], occ).mean()
-    tex_l = (w["tex"] * texture_loss(img, mask, r["tex_render"],
-                                     r["tex_mask"], occ).mean()
-             if cfg.tex_wt != 0.0 else zero)
-    match_l = (w["match"] * match_loss(match_map, r["match_gt"],
-                                       r["match_mask"], mask).mean()
-               if cfg.match_wt != 0.0 else zero)
-    imatch_l = (w["imatch"] * imatch_loss(imatch, r["imatch_gt"],
-                                          r["depth_weight"]).mean()
-                if cfg.imatch_wt != 0.0 else zero)
-    total = mask_l + tex_l + match_l + imatch_l
-    aux = dict(mask_loss=mask_l, texture_loss=tex_l, match_loss=match_l,
-               imatch_loss=imatch_l)
+    with span("forward.losses"):
+        occ = batch.get("occ") if cfg.use_occ else None
+        mask_l = w["mask"] * mask_pyramid_loss(mask, r["mask_render"],
+                                               occ).mean()
+        tex_l = (w["tex"] * texture_loss(img, mask, r["tex_render"],
+                                         r["tex_mask"], occ).mean()
+                 if cfg.tex_wt != 0.0 else zero)
+        match_l = (w["match"] * match_loss(match_map, r["match_gt"],
+                                           r["match_mask"], mask).mean()
+                   if cfg.match_wt != 0.0 else zero)
+        imatch_l = (w["imatch"] * imatch_loss(imatch, r["imatch_gt"],
+                                              r["depth_weight"]).mean()
+                    if cfg.imatch_wt != 0.0 else zero)
+        total = mask_l + tex_l + match_l + imatch_l
+        aux = dict(mask_loss=mask_l, texture_loss=tex_l, match_loss=match_l,
+                   imatch_loss=imatch_l)
 
-    if cfg.use_depth:
-        if cfg.depth_loss_chamfer:
-            depth_sub, _ = depth_loss_chamfer(
-                pred_v, faces, batch["depth"], r["depth_render"],
-                r["depth_mask"], mask, batch["pp_crop"], batch["foc_crop"],
-                rotation, translation, u=draws.chamfer_u,
-                ub=draws.chamfer_ub)
-        else:
-            depth_sub, _ = depth_loss(batch["depth"], r["depth_render"],
-                                      r["depth_mask"], mask)
-        aux["depth_loss"] = w["depth"] * depth_sub.mean()
-        total = total + aux["depth_loss"]
+        if cfg.use_depth:
+            if cfg.depth_loss_chamfer:
+                depth_sub, _ = depth_loss_chamfer(
+                    pred_v, faces, batch["depth"], r["depth_render"],
+                    r["depth_mask"], mask, batch["pp_crop"],
+                    batch["foc_crop"], rotation, translation,
+                    u=draws.chamfer_u, ub=draws.chamfer_ub)
+            else:
+                depth_sub, _ = depth_loss(batch["depth"], r["depth_render"],
+                                          r["depth_mask"], mask)
+            aux["depth_loss"] = w["depth"] * depth_sub.mean()
+            total = total + aux["depth_loss"]
 
-    symm_l = (w["symmetry"] * symmetry_loss(
-        pred_v, faces, dc.symm_rots, cfg.symmetry_npts, u=draws.sym_u,
-        ub=draws.sym_ub) if cfg.symmetry_wt != 0.0 else zero)
-    n_v = pred_v.shape[1]
-    tri_l = w["triangle"] * laplacian_loss(pred_v, dc.laplacian) * n_v / 64.0
-    if cfg.flatten_loss:
-        tri_l = tri_l + w["triangle"] * flatten_loss(
-            pred_v, dc.flatten_quads) * 0.1 * math.sqrt(n_v / 64.0)
-    pull_l = w["pullfar"] * pullfar_loss(translation)
-    deform_l = w["deform"] * deform_loss(pred_v, mean_v)
-    total = total + symm_l + tri_l + pull_l + deform_l
-    aux.update(symmetry_loss=symm_l, triangle_loss=tri_l,
-               pullfar_loss=pull_l, deform_loss=deform_l)
+        with span("loss.symmetry"):
+            symm_l = (w["symmetry"] * symmetry_loss(
+                pred_v, faces, dc.symm_rots, cfg.symmetry_npts,
+                u=draws.sym_u, ub=draws.sym_ub)
+                if cfg.symmetry_wt != 0.0 else zero)
+        n_v = pred_v.shape[1]
+        tri_l = w["triangle"] * laplacian_loss(pred_v, dc.laplacian) \
+            * n_v / 64.0
+        if cfg.flatten_loss:
+            tri_l = tri_l + w["triangle"] * flatten_loss(
+                pred_v, dc.flatten_quads) * 0.1 * math.sqrt(n_v / 64.0)
+        pull_l = w["pullfar"] * pullfar_loss(translation)
+        deform_l = w["deform"] * deform_loss(pred_v, mean_v)
+        total = total + symm_l + tri_l + pull_l + deform_l
+        aux.update(symmetry_loss=symm_l, triangle_loss=tri_l,
+                   pullfar_loss=pull_l, deform_loss=deform_l)
 
     # frozen-DINO cross-frame cycle loss; pairs are formed on the batch
     divide = DIVIDE_FNS[cfg.divide_fn]
     rep = cfg.repeat
     bs = b // rep
     cyc_pt = cyc = zero
-    if cfg.cycle_loss_pretrain_wt != 0.0:
-        with torch.no_grad():   # a bf16 trunk (--dino_bf16) on a bf16 image
+    pretrain = cfg.cycle_loss_pretrain_wt != 0.0
+    if pretrain:
+        # a bf16 trunk (--dino_bf16) on a bf16 image
+        with span("forward.dino"), torch.no_grad():
             dino_feat = dino(img.to(dino.dtype)).float()
-        dino_feat = dino_feat.reshape(b, -1, dino_feat.shape[-1])
-        cyc_pt, _ = corr.dino_cycle_loss(
-            divide(dino_feat, bs, rep), divide(mask, bs, rep),
-            divide(r["depth_weight"], bs, rep), divide(img_feat, bs, rep),
-            divide(mesh_feat, bs, rep), meshgrid, cfg.tau_img, cfg.tau_mesh,
-            cfg.corr_h, cfg.corr_w, cfg.pretrain_k)
-        cyc_pt = w["cycle_pt"] * cyc_pt
 
     # rotation-augmentation cycle loss: the rotated batch is normalized with
     # its own statistics, which do not enter the running statistics
@@ -329,10 +333,20 @@ def forward_train(model: MeshNet, dino, batch: dict, dc: DeviceConstants,
         with frozen_stats(model.encoder):
             return model.encoder.encode_img(x)[1]
 
-    if cfg.cycle_loss_wt != 0.0:
-        cyc = w["cycle"] * corr.rotation_cycle_loss(
-            draws.angle, img, mask, img_feat, encode_fn, meshgrid,
-            cfg.tau_mesh, cfg.corr_h, cfg.corr_w)[0]
+    with span("forward.cycle"):
+        if pretrain:
+            dino_feat = dino_feat.reshape(b, -1, dino_feat.shape[-1])
+            cyc_pt, _ = corr.dino_cycle_loss(
+                divide(dino_feat, bs, rep), divide(mask, bs, rep),
+                divide(r["depth_weight"], bs, rep),
+                divide(img_feat, bs, rep), divide(mesh_feat, bs, rep),
+                meshgrid, cfg.tau_img, cfg.tau_mesh, cfg.corr_h, cfg.corr_w,
+                cfg.pretrain_k)
+            cyc_pt = w["cycle_pt"] * cyc_pt
+        if cfg.cycle_loss_wt != 0.0:
+            cyc = w["cycle"] * corr.rotation_cycle_loss(
+                draws.angle, img, mask, img_feat, encode_fn, meshgrid,
+                cfg.tau_mesh, cfg.corr_h, cfg.corr_w)[0]
     total = total + cyc_pt + cyc
     aux.update(cycle_loss_pretrain=cyc_pt, cycle_loss=cyc)
 

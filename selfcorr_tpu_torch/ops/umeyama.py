@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from selfcorr_tpu_torch.utils import tracing
+
 
 def umeyama_similarity(src, tgt, w):
     """Weighted Umeyama fit in row convention, tgt ~ s * src @ R + t.
@@ -47,16 +49,19 @@ def draw_samples(valid: torch.Tensor, n_iters: int, n_sample: int,
     """(B, n_iters, n_sample) indices drawn uniformly, with replacement,
     from each row's valid points: from the uniforms `u` in [0, 1) of that
     shape, else from ones drawn on the CPU from `generator`."""
-    b, n = valid.shape
-    v = valid.cpu()
-    order = torch.sort((~v).to(torch.int8), dim=-1, stable=True).indices
-    count = v.sum(-1).clamp(min=1)
-    if u is None:
-        u = torch.rand((b, n_iters, n_sample), generator=generator)
-    k = (u * count[:, None, None]).long().minimum(count[:, None, None] - 1)
-    idx = torch.gather(order, 1, k.reshape(b, -1)).reshape(b, n_iters,
-                                                           n_sample)
-    return idx.to(valid.device)
+    with tracing.span("umeyama.draw"):
+        b, n = valid.shape
+        with tracing.span("umeyama.draw.wait"):    # waits for the device
+            v = valid.cpu()
+        order = torch.sort((~v).to(torch.int8), dim=-1, stable=True).indices
+        count = v.sum(-1).clamp(min=1)
+        if u is None:
+            u = torch.rand((b, n_iters, n_sample), generator=generator)
+        k = (u * count[:, None, None]).long().minimum(
+            count[:, None, None] - 1)
+        idx = torch.gather(order, 1, k.reshape(b, -1)).reshape(b, n_iters,
+                                                               n_sample)
+        return idx.to(valid.device)
 
 
 def ransac_umeyama_batch(src, tgt, valid, n_iters: int = 100,

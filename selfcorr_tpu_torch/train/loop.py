@@ -39,7 +39,11 @@ JAX package's K-step scan also logs the last step). K is ignored on the
 loader's path and under --profile_steps, as in the JAX package.
 --profile_steps N traces steps 11 to 10 + N with torch.profiler (CPU and
 CUDA activities) into <run>/trace/ as a Chrome trace, on rank 0; a run
-that ends inside the window writes the steps it traced. Every
+that ends inside the window writes the steps it traced. The program's
+spans (utils/tracing.py) are on for those steps, so the trace holds them
+as ranges over the device's operations, and the loop prints them as a
+table (calls, host, device and self host ms a step) with the five spans
+under which the device idled longest. Every
 batch_log_interval steps the
 metrics are fetched in one transfer, logged and printed; last_logged_loss
 keeps the total loss of the last log. A checkpoint is written every
@@ -67,6 +71,7 @@ from selfcorr_tpu_torch import parallel as P
 from selfcorr_tpu_torch.train.step import (decompress_batch, init_state,
                                            train_step)
 from selfcorr_tpu_torch.utils import checkpoint as ckpt
+from selfcorr_tpu_torch.utils import tracing
 from selfcorr_tpu_torch.utils.device import resolve_device, set_fp32_precision
 from selfcorr_tpu_torch.utils.logging import (NoopWriter, log_metrics,
                                               make_writer,
@@ -285,6 +290,7 @@ class Trainer:
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
+            self._tracing = (tracing.enable(), tracing.opened())
             prof.start()
         elif prof is not None and step_idx == 10 + n:
             self._stop_profile(prof, step_idx, ended=False)
@@ -292,10 +298,15 @@ class Trainer:
         return prof
 
     def _stop_profile(self, prof, last: int, ended: bool) -> None:
-        """Synchronize, stop and write <run>/trace/steps_11-<last>.json."""
+        """Synchronize, stop and write <run>/trace/steps_11-<last>.json;
+        print the program's spans over the traced steps and the device's
+        longest idle totals by span, and put the tracer back as it was."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         prof.stop()
+        was_on, since = self._tracing
+        if not was_on:
+            tracing.disable()
         trace_dir = os.path.join(self.run_dir, "trace")
         os.makedirs(trace_dir, exist_ok=True)
         path = os.path.join(trace_dir, f"steps_11-{last}.json")
@@ -304,6 +315,15 @@ class Trainer:
         print(f"profiler trace of steps 11 to {last} written to {path}"
               + (f" (the run ended inside the window, which runs to "
                  f"{10 + self.cfg.profile_steps})" if ended else ""),
+              flush=True)
+        rec = tracing.read(since)
+        steps = max(len(rec["units"]), 1)
+        print("\n".join(tracing.table(rec)), flush=True)
+        idle = sorted(tracing.idle_by_span(prof.events()).items(),
+                      key=lambda kv: -kv[1])[:5]
+        print("[profile] device idle by innermost span, ms a step: "
+              + (", ".join(f"{k} {v / steps:.2f}" for k, v in idle)
+                 if idle else "no device operation in the trace"),
               flush=True)
 
     def _log_images(self, writer, batch: dict, step: int) -> None:

@@ -9,6 +9,7 @@ update with the OneCycle learning rates. The metrics stay on the device as
 group) each rank steps on its own rows, and the gradients, aux losses and
 BatchNorm running statistics are averaged before the clip, as the JAX
 package's train_step_sharded pmeans them (selfcorr_tpu/train/step.py:175).
+Each phase is a span of utils/tracing.py, the whole call a unit.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from selfcorr_tpu_torch.models.meshnet import (DeviceConstants, MeshConstants,
 from selfcorr_tpu_torch.models.vit import DinoViTS8
 from selfcorr_tpu_torch.parallel import all_mean_
 from selfcorr_tpu_torch.train.optim import Optimizer, clip_and_guard
+from selfcorr_tpu_torch.utils.tracing import span
 from selfcorr_tpu_torch.utils.weight_convert import (load_pretrained_init,
                                                      load_warm_start)
 
@@ -99,23 +101,31 @@ def train_step(state: TrainState, batch: dict, draws: StepDraws,
     clip and the update, which every rank then takes alike. Returns the
     metrics as 0-d device tensors: the aux losses, the three group
     gradient norms and bad_grad."""
-    batch = decompress_batch(batch)
-    model = state.model
-    model.zero_grad(set_to_none=True)
-    total, aux = forward_train(model, state.dino, batch, state.constants,
-                               cfg, state.step, draws)
-    total.backward()
-    for p in model.parameters():   # every parameter takes part in the update
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    if group is not None:
-        names = sorted(aux)
-        losses = torch.stack([aux[k].detach() for k in names])
-        all_mean_([p.grad for p in model.parameters()] + [losses]
-                  + running_stats(model), group)
-        aux = dict(zip(names, losses.unbind()))
-    norms, bad = clip_and_guard(model)
-    state.optimizer.step(state.step)
-    state.step += 1
-    return {**{k: v.detach() for k, v in aux.items()}, **norms,
-            "bad_grad": bad.float()}
+    with span("train_step"):
+        with span("step.decompress"):
+            batch = decompress_batch(batch)
+        model = state.model
+        model.zero_grad(set_to_none=True)
+        with span("step.forward"):
+            total, aux = forward_train(model, state.dino, batch,
+                                       state.constants, cfg, state.step,
+                                       draws)
+        with span("step.backward"):
+            total.backward()
+            for p in model.parameters():   # every parameter takes part in
+                if p.grad is None:         # the update
+                    p.grad = torch.zeros_like(p)
+        if group is not None:
+            with span("step.all_mean"):
+                names = sorted(aux)
+                losses = torch.stack([aux[k].detach() for k in names])
+                all_mean_([p.grad for p in model.parameters()] + [losses]
+                          + running_stats(model), group)
+                aux = dict(zip(names, losses.unbind()))
+        with span("step.clip"):
+            norms, bad = clip_and_guard(model)
+        with span("step.optimizer"):
+            state.optimizer.step(state.step)
+        state.step += 1
+        return {**{k: v.detach() for k, v in aux.items()}, **norms,
+                "bad_grad": bad.float()}

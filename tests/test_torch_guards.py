@@ -261,9 +261,12 @@ def test_profile_steps_traces_the_window(tmp_path, capsys, monkeypatch):
     11 closes the window; one with N = 5 ends inside it, writes the steps it
     traced and says so. Both start at step 10, where the window opens, and
     write no checkpoint; the cycle losses are off (the loop is under
-    test)."""
+    test). The program's spans are on for the traced steps: the trace
+    holds them as ranges, the loop prints their table and the idle
+    readout, and the tracer is left as it was found, off and then on."""
     from selfcorr_tpu_torch.configs import parse_args
     from selfcorr_tpu_torch.train import loop
+    from selfcorr_tpu_torch.utils import tracing
     from selfcorr_tpu_torch.utils.logging import NoopWriter
     # the scalar writer would import TensorFlow here (~15 s)
     monkeypatch.setattr(loop, "make_writer", lambda run_dir: NoopWriter())
@@ -275,17 +278,30 @@ def test_profile_steps_traces_the_window(tmp_path, capsys, monkeypatch):
          "--cycle_loss_wt", "0", "--cycle_loss_pretrain_wt", "0"])
     trainer = entry(_TRAIN)(cfg)
     trace = os.path.join(trainer.run_dir, "trace")
-    for n, ended in ((1, False), (5, True)):
-        trainer.cfg = cfg.replace(profile_steps=n)
-        trainer.state.step, trainer.trace_path = 10, None
-        shutil.rmtree(trace, ignore_errors=True)
-        trainer.train()
-        assert os.listdir(trace) == ["steps_11-11.json"]
-        assert trainer.trace_path == os.path.join(trace, "steps_11-11.json")
-        with open(trainer.trace_path) as f:
-            assert json.load(f)["traceEvents"]
-        out = capsys.readouterr().out
-        assert ("ended inside the window" in out) == ended
+    was = tracing.disable()
+    try:
+        for n, ended, on in ((1, False, False), (5, True, True)):
+            (tracing.enable if on else tracing.disable)()
+            trainer.cfg = cfg.replace(profile_steps=n)
+            trainer.state.step, trainer.trace_path = 10, None
+            shutil.rmtree(trace, ignore_errors=True)
+            trainer.train()
+            assert tracing.enabled() == on
+            assert os.listdir(trace) == ["steps_11-11.json"]
+            assert trainer.trace_path == os.path.join(trace,
+                                                      "steps_11-11.json")
+            with open(trainer.trace_path) as f:
+                events = json.load(f)["traceEvents"]
+            names = {e.get("name") for e in events}
+            assert {"train_step", "step.backward", "step.optimizer"} <= names
+            out = capsys.readouterr().out
+            assert ("ended inside the window" in out) == ended
+            assert "[profile] spans over 1 unit(s)" in out
+            assert "[profile]   step.backward" in out
+            assert "[profile] device idle by innermost span" in out
+    finally:
+        tracing.reset()
+        (tracing.enable if was else tracing.disable)()
 
 
 _COORD = "127.0.0.1:29999"

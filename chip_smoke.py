@@ -5,10 +5,11 @@
 
 Phases, in order; any failure exits non-zero:
   1. device   require CUDA; print the card's name and power limit
-  2. build    compile the five kernels from the repo's sources, one nvcc per
+  2. build    compile the six kernels from the repo's sources, one nvcc per
               source, all started together: in ops/rasterizer/csrc/ B1
               raster_fwd.cu, B2 raster_bwd.cu, B1' raster_fwd_chunk.cu, B2'
-              raster_bwd_chunk.cu; B3 ops/csrc/flash_attn.cu; print each
+              raster_bwd_chunk.cu; B3 ops/csrc/flash_attn.cu; B4
+              ops/csrc/nearest_point.cu; print each
               kernel's registers and spills (nvcc --resource-usage) and the
               forwards' shared-memory loads (LDS, LDS.128) in their SASS
   3. B1       hold the rasterizer forward against its plain PyTorch version
@@ -39,7 +40,13 @@ Phases, in order; any failure exits non-zero:
               shape (32, 6, 1025, 64) on its strided views and on contiguous
               tensors, and at ragged T on both sides of the kernel's 192-row
               query tiles, 128-key tiles and 16-key short last tile; its
-              time over scaled_dot_product_attention's
+              time over scaled_dot_product_attention's; then B4, the
+              chamfers' nearest-point search, at the bottle's and the
+              laptop's symmetry-chamfer shapes against a float64 brute
+              force (each winner within fp32 rounding of the least
+              distance) and its plain version (the share of equal
+              winners), its time beside its bound, the plain version's and
+              torch.cdist(x, y).argmin(-1)'s
   8. predict  the predict path (selfcorr_tpu_torch.predict.main) on cuda at
               Wild6D-laptop width on the synthetic eval set with the render
               panels; launch counts are zeroed just before and read just
@@ -48,7 +55,8 @@ Phases, in order; any failure exits non-zero:
   9. train    the training path (selfcorr_tpu_torch.train.loop.main) on cuda
               at Wild6D-laptop width, batch 8 x 4 = 32, three times, each
               with the launch counts zeroed just before and read just after:
-              "train", the compact schedule, 6 steps (B1 = B2 = 6, B3 = 54);
+              "train", the compact schedule, 6 steps (B1 = B2 = 6, B3 = 54,
+              B4 = 6, and B4 = 0 in the predict slice);
               "train_chunk", the dense-chunk schedule (api.COMPACT = False),
               3 steps (B1' = B2' = 3, B1 = B2 = 0, B3 = 27);
               "train_surface", --surface_texture --n_tex_sample 6, 3 steps
@@ -945,6 +953,90 @@ def b3_phase(dev):
     return dict(cost, max_abs_err_by_case=errs)
 
 
+# B4 at the symmetry chamfers' shapes, (B, k * V) rotated vertices against
+# 10000 surface samples each: the bottle's 17 rotations of its 614-vertex
+# prior and the laptop's 2 of 592
+B4_CASES = (("bottle", (32, 17 * 614, 10000)), ("laptop", (32, 2 * 592, 10000)))
+# fp32 operations a (query, target) pair needs: three differences, three
+# squares, two sums
+B4_OPS_PER_PAIR = 8
+B4_REL_TOL = 1e-6    # ~6 fp32 roundings of the distance, as a share of it
+
+
+def b4_check(idx, x, y):
+    """The largest excess of a winner's float64 distance over the float64
+    least, as a share of the least (nan-free: the least is > 0 here), and
+    the share of winners equal to the plain version's."""
+    from selfcorr_tpu_torch.ops import knn
+    worst, same = 0.0, 0
+    for i in range(x.shape[0]):
+        d = ((x[i].double()[:, None, :] - y[i].double()[None, :, :]) ** 2
+             ).sum(-1)
+        dmin = d.min(-1).values
+        dwin = torch.gather(d, 1, idx[i][:, None])[:, 0]
+        worst = max(worst, float(((dwin - dmin) / dmin).max()))
+        del d
+        same += int((knn.nearest_index_plain(x[i:i + 1], y[i:i + 1])[0]
+                     == idx[i]).sum())
+    return worst, same / idx.numel()
+
+
+def b4_costs(x, y):
+    """B4, its plain version and torch.cdist(x, y).argmin(-1) on the same
+    inputs, and the bound: the larger of B N M pairs at B4_OPS_PER_PAIR
+    operations over the fp32 peak and x, y read once plus the indices
+    written once over HBM bandwidth."""
+    from selfcorr_tpu_torch.ops import knn
+    b, n, _ = x.shape
+    m = y.shape[1]
+    ms = time_ms(lambda: knn.nearest_index(x, y))
+    plain_ms = time_ms(lambda: knn.nearest_index_plain(x, y), reps=3,
+                       warmup=1)
+    torch.cuda.empty_cache()
+    lib_ms = time_ms(lambda: torch.cdist(x, y).argmin(-1), reps=3, warmup=1)
+    torch.cuda.empty_cache()
+    ops = B4_OPS_PER_PAIR * b * n * m
+    nbytes = 12 * b * (n + m) + 8 * b * n
+    t_ops = ops / FP32_PEAK * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, ops=ops,
+                bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                plan=knn.plan(b, n, m, torch.cuda.get_device_properties(
+                    x.device).multi_processor_count))
+
+
+def b4_phase(dev):
+    from selfcorr_tpu_torch.ops import knn
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = {}
+    for name, (b, n, m) in B4_CASES:
+        x = torch.randn((b, n, 3), generator=gen, device=dev) * 0.3
+        y = torch.randn((b, m, 3), generator=gen, device=dev) * 0.3
+        idx = knn.nearest_index(x, y)
+        torch.cuda.synchronize()
+        repeat = bool(torch.equal(idx, knn.nearest_index(x, y)))
+        worst, same = b4_check(idx, x, y)
+        c = dict(b4_costs(x, y), shape=(b, n, m), max_rel_excess=worst,
+                 same_as_plain=same, repeat_equal=repeat)
+        res[name] = c
+        print(f"[B4] {name} (B, N, M) = {c['shape']}, plan (queries a "
+              f"block, targets a chunk, chunks) {c['plan']}: kernel "
+              f"{c['ms']} ms, plain {c['plain_ms']} ms, torch.cdist argmin "
+              f"{c['library_ms']} ms, bound {c['bound_ms']} ms "
+              f"({c['bound_by']}; {c['ops']} operations, {c['bytes']} "
+              f"bytes; {100 * c['bound_ms'] / c['ms']:.1f}% of the bound); "
+              f"winners' excess over the float64 least {worst:.3g}, equal "
+              f"to the plain version's {100 * same:.4f}%, repeat equal "
+              f"{repeat}", flush=True)
+        del x, y, idx
+        torch.cuda.empty_cache()
+        if worst > B4_REL_TOL or not repeat:
+            fail(f"B4 {name}: excess {worst:.3g} (limit {B4_REL_TOL}), "
+                 f"repeat equal {repeat}")
+    return res
+
+
 # ---------------------------------------------------------------------------
 # the predict slice
 # ---------------------------------------------------------------------------
@@ -973,6 +1065,7 @@ def slice_phase():
     wall = time.time() - t0
     print(f"[slice] predict.main wall {wall:.2f} s (cold: data, first "
           f"launches); kernel launches {launches}", flush=True)
+    check_b4_launches("predict", 0)
     for k in NOCS_KEYS:
         print(f"[slice] {k}: {results.get(k)}")
     if not all(k in results and math.isfinite(results[k])
@@ -1152,10 +1245,24 @@ def schedule(compact: bool):
 
 
 def reset_launches():
-    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops import attention as A, knn
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
     KR.reset_launches()
     A.reset_launches()
+    knn.reset_launches()
+
+
+# B4's launches by run (the symmetry loss's search, one a training step and
+# none a predict call), apart from read_launches' B1-B3 counts
+B4_LAUNCHES = {}
+
+
+def check_b4_launches(tag: str, want: int):
+    from selfcorr_tpu_torch.ops import knn
+    got = B4_LAUNCHES[tag] = knn.LAUNCHES["nearest_point"]
+    print(f"[{tag}] B4 launches {got}", flush=True)
+    if got != want:
+        fail(f"{tag}: B4 launched {got} times, expected {want}")
 
 
 def read_launches():
@@ -1190,6 +1297,7 @@ def train_phase(path: str):
     print(f"[{path}] loop.main {steps} steps, wall {wall:.2f} s (cold: "
           f"data, first launches, the final checkpoint); kernel launches "
           f"{launches}", flush=True)
+    check_b4_launches(path, steps)
     want = {n: steps if n in raster else 0 for n in launches}
     want["dino_flash_attn"] = ATTN_PER_STEP * steps
     if launches != want:
@@ -3390,18 +3498,20 @@ def device_setup():
 def main() -> int:
     t_start = time.time()
     smi, kind, dev = device_setup()
-    from selfcorr_tpu_torch.ops import attention as A
+    from selfcorr_tpu_torch.ops import attention as A, knn
     from selfcorr_tpu_torch.ops.rasterizer import kernel as KR
     from selfcorr_tpu_torch.utils import cuda_build
 
     phase("build")
     t0 = time.time()
-    cuda_build.build_all(list(KR.SOURCES.values()) + [A.SOURCE])
+    cuda_build.build_all(list(KR.SOURCES.values()) + [A.SOURCE, knn.SOURCE])
     KR.build()
     A.build()
+    knn.build()
     build_s = time.time() - t0
     built = [os.path.basename(p) for p in KR.SOURCES.values()]
-    print(f"[build] {', '.join(built + ['flash_attn.cu'])} built (one nvcc "
+    print(f"[build] {', '.join(built + ['flash_attn.cu', 'nearest_point.cu'])}"
+          f" built (one nvcc "
           f"each, in parallel) and bound in {build_s:.2f} s", flush=True)
     usage = {}
     for src, log in cuda_build.LOGS.items():
@@ -3431,6 +3541,8 @@ def main() -> int:
     texel_scenes = texel_phase(rng, dev)
     phase("B3 vs plain version")
     b3_cost = b3_phase(dev)
+    phase("B4 vs float64 and the plain version")
+    b4_cost = b4_phase(dev)
 
     phase("predict slice")
     cfg, predict_launches, captured = slice_phase()
@@ -3521,6 +3633,7 @@ def main() -> int:
                "b1_predict_path_max_abs_err": errs,
                "b2_at_scenes": b2_timings, "chunk_at_scenes": chunk_scenes,
                "texels_at_scenes": texel_scenes, "b3_trunk_shape": b3_cost,
+               "b4_symmetry_shapes": b4_cost, "b4_launches": B4_LAUNCHES,
                "train_step_ms": {p: s[0] for p, s in steps.items()},
                "train_imgs_per_s": {p: s[1] for p, s in steps.items()},
                "train_profile": {p: s[2] for p, s in steps.items()},
@@ -3554,6 +3667,17 @@ def main() -> int:
             row["dp_gloo_max_abs_err"] = [
                 rk["max_abs_err"][name] for rk in dp["gloo"]["ranks"]]
         rows.append(row)
+    c = b4_cost["bottle"]
+    rows.append({
+        "name": "nearest_point", "route": "cuda",
+        "source": "selfcorr_tpu_torch/ops/csrc/nearest_point.cu",
+        "replaces": None, "launches": B4_LAUNCHES["train"],
+        "launches_by_path": dict(B4_LAUNCHES),
+        "max_rel_excess": c["max_rel_excess"], "ms": c["ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        "laptop": {k: b4_cost["laptop"][k] for k in (
+            "max_rel_excess", "ms", "plain_ms", "bound_ms", "library_ms")}})
     print(f"[done] every phase passed in {time.time() - t_start:.1f} s",
           flush=True)
     print(json.dumps({"kernels": rows}))

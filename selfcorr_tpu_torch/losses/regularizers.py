@@ -52,14 +52,17 @@ def symmetry_loss(pred_v, faces, symm_rots, n_samples: int = 10000,
                   u=None, ub=None, generator=None):
     """One-way chamfer from the symmetry-rotated vertices to the predicted
     surface. pred_v (B, V, 3); symm_rots (k, 3, 3); draws u, ub as in
-    sample_surface. Scalar mean over B * k."""
+    sample_surface. Scalar mean over the B * k * V rotated vertices, which
+    equals the JAX package's mean over B * k one-way chamfers of V: each
+    batch element's k * V rotated vertices search its own samples once,
+    rather than k repeats of them."""
     b, v, _ = pred_v.shape
     k = symm_rots.shape[0]
     samples = sample_surface(pred_v, faces, n_samples, u=u, ub=ub,
                              generator=generator)
     v_rot = torch.einsum("bvc,kdc->bkvd", pred_v, symm_rots).reshape(
-        b * k, v, 3)
-    return chamfer_single_way(v_rot, torch.repeat_interleave(samples, k, 0))
+        b, k * v, 3)
+    return chamfer_single_way(v_rot, samples)
 
 
 def pullfar_loss(translation):

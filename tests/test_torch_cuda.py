@@ -3,7 +3,9 @@ forward and backward in the compact schedule (B1, B2) and the dense-chunk
 schedule (B1', B2'), with and without surface texels, and the DINO
 attention kernel (B3) against their plain PyTorch versions, the predict path
 on the card against the same path on the CPU, one full-width train step
-on the card, a resume from a checkpoint on the card, the CUB
+on the card (laptop and bottle), a resume from a checkpoint on the card,
+the chamfers' nearest-point search (B4) against a float64 brute force, the
+CUB
 evaluation's mask render on a batch read from a Wild6D fixture, and the
 trainer's image-log forward (forward_vis) on the card against the CPU.
 They skip without a card.
@@ -24,7 +26,7 @@ import torch
 from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.data.loader import TestLoader
 from selfcorr_tpu_torch.eval.tester import Tester, make_test_dataset
-from selfcorr_tpu_torch.ops import attention as A
+from selfcorr_tpu_torch.ops import attention as A, knn
 from selfcorr_tpu_torch.ops.rasterizer import api, common as C, kernel
 from selfcorr_tpu_torch.ops.rasterizer.reference import (
     BWD_GRADS, PLANES, raster_fused_bwd_chunk_plain, raster_fused_bwd_plain,
@@ -268,6 +270,155 @@ def test_full_width_train_step_on_card(cuda, tmp_path):
                                "raster_fused_fwd_chunk": 0,
                                "raster_fused_bwd_chunk": 0}
     assert A.LAUNCHES == {"dino_flash_attn": 9}
+
+
+def test_full_width_bottle_train_step_launches_b4_once(cuda, tmp_path):
+    """One train step at Wild6D-bottle width (the 17-fold symmetry
+    chamfer): finite metrics, B4 launched once for the symmetry loss, and
+    B1 / B2 / B3 as in the laptop's step."""
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.data.loader import stack_items
+    from selfcorr_tpu_torch.models.meshnet import draw_step
+    from selfcorr_tpu_torch.train.loop import Trainer, make_train_dataset
+    from selfcorr_tpu_torch.train.step import train_step
+    cfg = parse_args(["--flagfile", os.path.join(ROOT, "config/wild6d/"
+                                                 "bottle.txt"),
+                      "--dataset_name", "synthetic",
+                      "--checkpoint_dir", str(tmp_path)])
+    trainer = Trainer(cfg)
+    ds = make_train_dataset(cfg)
+    batch = trainer.upload(stack_items([ds.load_item(*a)
+                                        for a in ds.sample_plan(0)]))
+    draws = draw_step(torch.Generator().manual_seed(0), cfg, 32)
+    kernel.reset_launches()
+    A.reset_launches()
+    knn.reset_launches()
+    metrics = train_step(trainer.state, batch, draws, cfg)
+    torch.cuda.synchronize()
+    assert all(np.isfinite(float(v)) for v in metrics.values()), metrics
+    assert float(metrics["bad_grad"]) == 0.0 and trainer.state.step == 1
+    assert knn.LAUNCHES == {"nearest_point": 1}
+    assert kernel.LAUNCHES == {"raster_fused_fwd": 1, "raster_fused_bwd": 1,
+                               "raster_fused_fwd_chunk": 0,
+                               "raster_fused_bwd_chunk": 0}
+    assert A.LAUNCHES == {"dino_flash_attn": 9}
+
+
+def brute_force_sq_dist(x, y, y_valid=None):
+    """(B, N, M) float64 squared distances of the fp32 points, masked
+    targets at +inf, one batch element at a time."""
+    out = []
+    for i in range(x.shape[0]):
+        d = ((x[i].double()[:, None, :] - y[i].double()[None, :, :]) ** 2
+             ).sum(-1)
+        if y_valid is not None:
+            d = torch.where(y_valid[i][None, :] > 0, d, float("inf"))
+        out.append(d)
+    return torch.stack(out)
+
+
+def assert_nearest(idx, x, y, y_valid=None):
+    """Each winner's float64 distance is within fp32 rounding of the
+    float64 minimum: B4 sums three fp32 squares of fp32 differences, each
+    within 2^-24 of its value, so a winner's exact distance is at most
+    ~6 * 2^-23 above the least one, relatively; a masked target wins only
+    where every target is masked, and then index 0."""
+    assert idx.dtype == torch.int64 and idx.shape == x.shape[:2]
+    assert bool(((idx >= 0) & (idx < y.shape[1])).all())
+    for i in range(x.shape[0]):
+        d = brute_force_sq_dist(x[i:i + 1], y[i:i + 1], None if y_valid
+                                is None else y_valid[i:i + 1])[0]
+        dmin = d.min(-1).values
+        dwin = torch.gather(d, 1, idx[i][:, None])[:, 0]
+        live = torch.isfinite(dmin)
+        assert bool((dwin[live] <= dmin[live] * (1 + 1e-6) + 1e-30).all())
+        assert bool((idx[i][~live] == 0).all())
+
+
+def chamfer_points(b, n, m, seed, cuda):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, n, 3), generator=g, device=cuda) * 0.3
+    y = torch.randn((b, m, 3), generator=g, device=cuda) * 0.3
+    return x, y
+
+
+# the bottle's and the laptop's symmetry chamfer (B, k * V, 10000 samples),
+# the depth chamfer (B, 256 * 256, 2000), and ragged sizes about B4's
+# 512-query blocks, 1024-target tiles and 8-target groups
+B4_SHAPES = [(32, 17 * 614, 10000), (32, 2 * 592, 10000),
+             (32, 256 * 256, 2000), (2, 1, 1), (3, 37, 1), (2, 513, 9),
+             (2, 1000, 1025), (1, 5, 2049), (3, 1531, 3000)]
+
+
+@pytest.mark.parametrize("b,n,m", B4_SHAPES)
+def test_nearest_point_kernel_against_float64(cuda, b, n, m):
+    x, y = chamfer_points(b, n, m, 11, cuda)
+    before = knn.LAUNCHES["nearest_point"]
+    idx = knn.nearest_index(x, y)
+    assert knn.LAUNCHES["nearest_point"] == before + 1
+    assert_nearest(idx, x, y)
+    assert torch.equal(knn.nearest_index(x, y), idx)
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 700, 3000), (3, 37, 9), (2, 50, 1)])
+def test_nearest_point_kernel_with_a_mask(cuda, b, n, m):
+    """Masked targets never win; a batch element with every target masked
+    answers index 0, as argmin over +inf does."""
+    x, y = chamfer_points(b, n, m, 12, cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    valid = (torch.rand((b, m), generator=g, device=cuda) > 0.6).float()
+    valid[-1] = 0.0
+    idx = knn.nearest_index(x, y, valid.bool())
+    assert_nearest(idx, x, y, valid)
+    assert torch.equal(idx, knn.nearest_index(x, y, valid))
+    assert bool((idx[-1] == 0).all())
+
+
+@pytest.mark.parametrize("b,n,m", [(2, 700, 10000), (32, 1184, 10000),
+                                   (2, 300, 17)])
+def test_nearest_point_kernel_ties_go_to_the_first_index(cuda, b, n, m):
+    """Exact duplicates planted (a) in the next slot, inside one 8-target
+    group, and (b) half the targets later, across chunks when the targets
+    are split: every winner is the first of its copies."""
+    x, y = chamfer_points(b, n, m, 14, cuda)
+    y[:, 1::2] = y[:, 0:(m // 2) * 2:2]
+    idx = knn.nearest_index(x, y)
+    assert bool((idx % 2 == 0).all())
+    assert_nearest(idx, x, y)
+    h = m // 2
+    y2 = torch.cat([y[:, :h], y[:, :h]], 1)
+    idx = knn.nearest_index(x, y2)
+    assert bool((idx < h).all())
+    assert torch.equal(idx, knn.nearest_index(x, y2))
+
+
+def test_nearest_point_gradient_equals_the_plain_version(cuda):
+    """min_sq_dist's gradients through B4's winners against those through
+    the plain version's: equal for every query whose winner agrees, and
+    for every target that no disagreeing query chose."""
+    x, y = chamfer_points(4, 900, 1500, 15, cuda)
+    idx_k = knn.nearest_index(x, y)
+    idx_p = knn.nearest_index_plain(x, y)
+    grads = []
+    for idx in (idx_k, idx_p):
+        xg, yg = x.clone().requires_grad_(True), y.clone().requires_grad_(
+            True)
+        ynn = torch.gather(yg, 1, idx[..., None].expand(-1, -1, 3))
+        ((xg - ynn) ** 2).sum(-1).clamp(min=0.0).sum().backward()
+        grads.append((xg.grad, yg.grad))
+    xk = x.clone().requires_grad_(True)
+    yk = y.clone().requires_grad_(True)
+    knn.min_sq_dist(xk, yk).sum().backward()
+    assert torch.equal(xk.grad, grads[0][0])
+    same = idx_k == idx_p
+    assert float(same.float().mean()) > 0.99
+    assert torch.equal(xk.grad[same], grads[1][0][same])
+    touched = torch.zeros(y.shape[:2], dtype=torch.bool, device=cuda)
+    for i in range(x.shape[0]):
+        touched[i, idx_k[i][~same[i]]] = True
+        touched[i, idx_p[i][~same[i]]] = True
+    torch.testing.assert_close(yk.grad[~touched], grads[1][1][~touched],
+                               rtol=1e-6, atol=1e-7)
 
 
 def assert_fwd_close(got, ref):

@@ -212,6 +212,111 @@ def test_min_sq_dist_and_chamfer():
           JK.chamfer_single_way(x, y, x_valid=xv, batch_reduction=None))
 
 
+def test_min_sq_dist_runs_the_plain_version_on_the_cpu():
+    """On CPU tensors the nearest index is the plain matrix form's argmin,
+    kernel B4 is never launched, and the distance is recomputed from the
+    gathered winner."""
+    rng = np.random.RandomState(6)
+    x, y = t(rng.randn(3, 40, 3).astype(np.float32)), t(
+        rng.randn(3, 70, 3).astype(np.float32))
+    before = dict(knn.LAUNCHES)
+    idx = knn.nearest_index(x, y)
+    got = knn.min_sq_dist(x, y)
+    assert knn.LAUNCHES == before == {"nearest_point": 0}
+    assert torch.equal(idx, knn.nearest_index_plain(x, y))
+    ynn = torch.gather(y, 1, idx[..., None].expand(-1, -1, 3))
+    assert torch.equal(got, ((x - ynn) ** 2).sum(-1))
+
+
+@pytest.mark.parametrize("xs,ys,vs", [
+    ((2, 5, 2), (2, 7, 2), None),          # last dimension not 3
+    ((2, 5, 3), (2, 7, 4), None),
+    ((2, 5, 3), (3, 7, 3), None),          # batches differ
+    ((5, 3), (2, 7, 3), None),             # not (B, N, 3)
+    ((2, 5, 3), (2, 0, 3), None),          # no target
+    ((2, 5, 3), (2, 7, 3), (2, 6)),        # mask of another shape
+])
+def test_nearest_index_refuses_shapes_it_does_not_take(xs, ys, vs):
+    args = [torch.zeros(xs), torch.zeros(ys)]
+    if vs is not None:
+        args.append(torch.ones(vs))
+    with pytest.raises(ValueError):
+        knn.nearest_index(*args)
+    with pytest.raises(ValueError):
+        knn.min_sq_dist(*args)
+
+
+def test_min_sq_dist_takes_its_own_contiguous_fp32_copies():
+    """Strided and float64 inputs give what contiguous float32 ones give,
+    and are left as they were."""
+    rng = np.random.RandomState(7)
+    x = t(rng.randn(2, 3, 30).astype(np.float64)).transpose(1, 2)
+    y = t(rng.randn(2, 3, 50).astype(np.float64)).transpose(1, 2)
+    x0, y0 = x.clone(), y.clone()
+    got = knn.min_sq_dist(x, y)
+    want = knn.min_sq_dist(x.float().contiguous(), y.float().contiguous())
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+    assert torch.equal(x, x0) and torch.equal(y, y0)
+
+
+@pytest.mark.parametrize("b,n,m", [(32, 17 * 614, 10000),
+                                   (32, 2 * 592, 10000),
+                                   (32, 256 * 256, 2000), (1, 1, 1),
+                                   (3, 37, 1), (2, 513, 9), (1, 5, 2049),
+                                   (4, 1000, 100000)])
+def test_b4_plan_covers_every_pair(b, n, m):
+    """B4's grid: blocks of at most BLOCK_QUERIES queries, none empty;
+    chunks of whole groups, none empty, covering the targets, no more of
+    them than M / MIN_CHUNK rounded up; the bottle's
+    symmetry shape splits its targets, the depth chamfer's does not."""
+    per_block, chunk, chunks = knn.plan(b, n, m, 132)
+    q_blocks = -(-n // per_block)
+    assert 1 <= per_block <= knn.BLOCK_QUERIES
+    assert (q_blocks - 1) * per_block < n <= q_blocks * per_block
+    assert chunk % knn.GROUP == 0
+    assert (chunks - 1) * chunk < m <= chunks * chunk
+    assert chunks <= max(1, -(-m // knn.MIN_CHUNK))
+    if chunks > 1:
+        assert b * q_blocks * (chunks - 1) < knn.BLOCKS_PER_SM * 132
+    if (b, n, m) == (32, 17 * 614, 10000):
+        assert (per_block, chunks) == (498, 4)
+    if (b, n, m) == (32, 256 * 256, 2000):
+        assert chunks == 1
+
+
+def old_symmetry_loss(pred_v, faces, symm_rots, n_samples, u, ub):
+    """The (B * k, V, 3) form: each rotation's vertices against a repeat
+    of the samples."""
+    b, v, _ = pred_v.shape
+    k = symm_rots.shape[0]
+    samples = M.sample_surface(pred_v, faces, n_samples, u=u, ub=ub)
+    v_rot = torch.einsum("bvc,kdc->bkvd", pred_v, symm_rots).reshape(
+        b * k, v, 3)
+    return knn.chamfer_single_way(v_rot,
+                                  torch.repeat_interleave(samples, k, 0))
+
+
+@pytest.mark.parametrize("k", [1, 2, 17])
+def test_symmetry_loss_equals_the_repeated_form(k):
+    """symmetry_loss's (B, k * V, 3) search against the samples equals the
+    mean of the B * k one-way chamfers against repeated samples, in value
+    and in the vertex gradient, within summation-order rounding."""
+    v, faces = mesh(seed=k)
+    ang = 2 * np.pi * np.arange(k) / k
+    rots = np.stack([[[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                      [-np.sin(a), 0, np.cos(a)]] for a in ang])
+    rots = t(rots.astype(np.float32))
+    u, ub = M.surface_draws(torch.Generator().manual_seed(k), 2, 1000)
+    got, want = [], []
+    for fn, acc in ((L.symmetry_loss, got), (old_symmetry_loss, want)):
+        vt = t(v).requires_grad_(True)
+        loss = fn(vt, torch.tensor(faces), rots, 1000, u=u, ub=ub)
+        loss.backward()
+        acc += [loss.detach(), vt.grad]
+    close(got[0], want[0], rtol=1e-6, atol=0)
+    close(got[1], want[1], rtol=1e-5, atol=1e-7)
+
+
 @pytest.mark.parametrize("angle", [10.0, 100.0, 190.0, 280.0, 90.0, 44.0])
 @pytest.mark.parametrize("mode", ["bilinear", "nearest"])
 def test_rotate_fast_every_quarter_turn(angle, mode):

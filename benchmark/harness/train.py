@@ -52,6 +52,74 @@ def _first_grads(state) -> dict:
     return out
 
 
+def capture(state, one_step, check: int, keep: bool = True):
+    """Run the first `check` steps through `one_step` and keep what the
+    reference follows (where `keep`): each step's loss terms, each
+    optimized leaf's first gradient as AdamW took it, and the parameters
+    after the last of them."""
+    aux = []
+    for i in range(check):
+        m = one_step()
+        if keep:
+            aux.append({k: v.detach().clone() for k, v in m.items()
+                        if k.endswith("loss") or k.startswith("cycle")})
+            if i == 0:
+                grad = _first_grads(state)
+    if not keep:
+        return None
+    return SimpleNamespace(aux=aux, grad=grad, p3={
+        n: p.detach().clone() for n, p in state.model.named_parameters()})
+
+
+def follow(prog, p0: dict, ref_model, ref_dino, rconst, rcfg, device,
+           steps: list, count_flops: bool, world: int | None = None,
+           reduce=None):
+    """The reference's steps from the weights it holds, each a list of
+    shards [(batch, draws as a dict)] (benchmark/reference/train/step.py;
+    `world` and `reduce` where the shards are spread over processes),
+    then, where `prog` holds the program's capture, the comparison:
+    (numbers, notes, the first step's matrix work where `count_flops`),
+    or None where it does not."""
+    from benchmark.reference.models.meshnet import StepDraws as RDraws
+    from benchmark.reference.models.meshnet import device_constants
+    from benchmark.reference.train.optim import Optimizer
+    from benchmark.reference.train.step import train_step as ref_step
+    ref_model.train()
+    ref_dino.eval().requires_grad_(False)
+    opt = Optimizer(ref_model, rcfg)
+    dc = device_constants(rconst, device)
+    ref_aux, ref_grad, flops = [], None, None
+    b = rcfg.batch_size * rcfg.repeat
+    for i, shards in enumerate(steps):
+        args = (ref_model, ref_dino, opt, dc,
+                [(batch, RDraws(**d)) for batch, d in shards], rcfg, i,
+                world, reduce)
+        if count_flops and i == 0:
+            with costs.count_flops() as counter:
+                aux, grads = ref_step(*args)
+            flops = (counter.get_total_flops(), costs.attn_flops(rcfg, b))
+        else:
+            aux, grads = ref_step(*args)
+        if prog is not None:
+            ref_aux.append({k: float(aux[k]) for k in prog.aux[i]})
+            if i == 0:
+                ref_grad = {k: grads[k] for k in prog.grad}
+        del grads
+    if prog is None:
+        return None
+    prog_aux = [{k: float(v) for k, v in d.items()} for d in prog.aux]
+    ref_p3 = {n: p.detach() for n, p in ref_model.named_parameters()}
+    numbers, notes = compare.train_numbers(
+        prog_aux, ref_aux, prog.grad, ref_grad,
+        {k: prog.p3[k] - p0[k] for k in prog.grad},
+        {k: ref_p3[k] - p0[k] for k in prog.grad})
+    lines = [f"total loss of the first {len(steps)} steps: program "
+             f"{[a['total_loss'] for a in prog_aux]}, reference "
+             f"{[a['total_loss'] for a in ref_aux]}"]
+    lines += [f"{k}: {v}" for k, v in notes.items()]
+    return numbers, lines, flops
+
+
 def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         readers: dict, flag_overrides: dict | None = None) -> SimpleNamespace:
     clock = common.SetupClock(t0)
@@ -92,9 +160,8 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
 
     n_pool = len(pool)
     before = common.launches()
-    check = tr["check_steps"]
     done = [0]
-    bads, losses = [], []
+    bads = []
 
     def one_step():
         i = done[0] % n_pool
@@ -103,17 +170,9 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
         done[0] += 1
         return m
 
-    for i in range(tr["warmup_steps"]):
-        m = one_step()
-        if i < check:
-            losses.append({k: v.detach().clone() for k, v in m.items()
-                           if k.endswith("loss") or k.startswith("cycle")})
-        if i == 0:
-            prog_grad = _first_grads(state)
-        if i == check - 1:
-            prog_p3 = {n: p.detach().clone()
-                       for n, p in state.model.named_parameters()}
-    del m
+    prog = capture(state, one_step, tr["check_steps"])
+    for _ in range(tr["warmup_steps"] - tr["check_steps"]):
+        one_step()
     clock.mark("warmup", device)
 
     out = SimpleNamespace(setup_s=clock.total(),
@@ -147,48 +206,18 @@ def run(cell, seed: int, seconds: float, trace: bool, device, t0: float,
     off, line = common.launches_off(before, common.launches(), done[0],
                                     tr["launches_per_unit"], device)
     out.notes.append(line)
-    prog_aux = [{k: float(v) for k, v in d.items()} for d in losses]
     del state
     common.free(device)
 
     # the reference, once the window has closed and the program is freed
     t_ref = time.perf_counter()
-    from benchmark.reference.models.meshnet import StepDraws as RDraws
-    from benchmark.reference.models.meshnet import device_constants
-    from benchmark.reference.train.optim import Optimizer
-    from benchmark.reference.train.step import train_step as ref_step
-    ref_model.train()
-    ref_dino.eval().requires_grad_(False)
-    opt = Optimizer(ref_model, rcfg)
-    dc = device_constants(rconst, device)
-    ref_aux, ref_grad = [], None
-    flops = None
-    for i in range(check):
-        batch, dr = pool[i], RDraws(**draws[i])
-        if trace and i == 0:
-            with costs.count_flops() as counter:
-                aux, grads = ref_step(ref_model, ref_dino, opt, dc, batch,
-                                      dr, rcfg, i)
-            flops = (counter.get_total_flops(), costs.attn_flops(rcfg, b))
-        else:
-            aux, grads = ref_step(ref_model, ref_dino, opt, dc, batch, dr,
-                                  rcfg, i)
-        ref_aux.append({k: float(aux[k]) for k in prog_aux[i]})
-        if i == 0:
-            ref_grad = {k: grads[k] for k in prog_grad}
-        del grads
-    ref_p3 = {n: p.detach() for n, p in ref_model.named_parameters()}
-    numbers, notes = compare.train_numbers(
-        prog_aux, ref_aux, prog_grad, ref_grad,
-        {k: prog_p3[k] - p0[k] for k in prog_grad},
-        {k: ref_p3[k] - p0[k] for k in prog_grad})
+    numbers, lines, flops = follow(
+        prog, p0, ref_model, ref_dino, rconst, rcfg, device,
+        [[(pool[i], draws[i])] for i in range(tr["check_steps"])], trace)
     numbers["launches_off"] = off
     out.numbers = numbers
     out.reference_s = time.perf_counter() - t_ref
-    out.notes.append(f"total loss of the first {check} steps: program "
-                     f"{[a['total_loss'] for a in prog_aux]}, reference "
-                     f"{[a['total_loss'] for a in ref_aux]}")
-    out.notes += [f"{k}: {v}" for k, v in notes.items()]
+    out.notes += lines
     out.notes.append("numbers: " + json.dumps(numbers))
 
     if trace:

@@ -15,8 +15,9 @@ parts and notes go to standard error, and the numbers compared, each
 beside its limit, are its last lines.
 
 Exits 2 without a CUDA device (or with fewer than the cell asks for), and
-1 if the process holds JAX or the JAX package after the window. Caches of
-the program's builds stay inside the checkout."""
+1 if the process, or a rank process it started, holds JAX or the JAX
+package after the window. Caches of the program's builds stay inside the
+checkout."""
 from __future__ import annotations
 
 import time
@@ -110,14 +111,17 @@ def main(argv=None, device=None, flag_overrides=None) -> int:
         device = torch.device("cuda", 0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-    from benchmark.harness import predict, train
-    runners = {"train_step": train.run, "predict_batch": predict.run}
+    from benchmark.harness import predict, train, train_dp
+    runners = {"train_step": train.run, "train_step_dp": train_dp.run,
+               "predict_batch": predict.run}
     readers = ({m["name"]: metric_reader(m["name"]) for m in cell.per_layer}
                if args.trace else {})
     out = runners[cell.traffic["entry"]](
         cell, args.seed, args.seconds, bool(args.trace), device, T0,
         readers, flag_overrides)
-    found = forbidden_modules()
+    # a cell on several chips runs in rank processes, which report theirs
+    found = sorted(set(forbidden_modules()) | set(getattr(out, "forbidden",
+                                                          [])))
     if found:
         log(f"no result: the process holds {found} after the window")
         return 1

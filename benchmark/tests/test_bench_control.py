@@ -31,10 +31,11 @@ def _fails(cell, numbers):
                                       "bottle_train"])
 def test_tf32_control_fails(cuda, workload):
     cell = resolve(workload)
-    _fails(cell, control.numbers(cell, 7, "tf32", cuda))
+    _fails(cell, control.numbers(cell, 7, ["tf32"], cuda)["tf32"])
 
 
 @pytest.mark.parametrize("workload", ["laptop_train", "bottle_train"])
 def test_half_batch_fault_fails(cuda, workload):
     cell = resolve(workload)
-    _fails(cell, control.numbers(cell, 7, "half_batch", cuda))
+    _fails(cell,
+           control.numbers(cell, 7, ["half_batch"], cuda)["half_batch"])

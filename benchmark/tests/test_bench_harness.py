@@ -48,7 +48,11 @@ def test_benchmark_file_shape():
     layers = {m["layer"] for m in BENCH["per_layer"]}
     assert all(0 < len(x) <= 200 and "\n" not in x for x in layers)
     for w in BENCH["workloads"]:
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    # four chips only where the cell measures what exists across chips:
+    # at most a quarter of the cells, or one
+    four = [w["name"] for w in BENCH["workloads"] if w["chips"] == 4]
+    assert len(four) <= max(1, len(BENCH["workloads"]) // 4), four
     for c in BENCH["configs"]:
         assert c["file"].startswith("benchmark/") and os.path.exists(
             os.path.join(C.ROOT, c["file"]))
@@ -58,7 +62,8 @@ def test_benchmark_file_shape():
 @pytest.mark.parametrize("workload", CELLS)
 def test_cell_resolves(workload):
     cell = C.resolve(workload)
-    assert cell.traffic["entry"] in ("train_step", "predict_batch")
+    assert cell.traffic["entry"] in ("train_step", "train_step_dp",
+                                     "predict_batch")
     assert cell.limits and all(v >= 0 for v in cell.limits.values())
     assert "setup_s" in [m["name"] for m in cell.end_to_end]
     assert len(cell.end_to_end) >= 2 and cell.per_layer

@@ -9,6 +9,7 @@ checkpoint's names (see utils/weight_convert.py).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -35,6 +36,7 @@ from selfcorr_tpu_torch.ops.image_ops import (color_jitter, grid_sample,
                                               jitter_factors)
 from selfcorr_tpu_torch.ops.rasterizer import render_fused
 from selfcorr_tpu_torch.ops.rasterizer.common import EYE_OFFSET
+from selfcorr_tpu_torch.utils.device import upload
 from selfcorr_tpu_torch.utils.tracing import span
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -129,13 +131,19 @@ class MeshNet(nn.Module):
         self.mesh = MeshParams(constants.mean_v_init)
 
 
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device) -> tuple:
+    """The ImageNet mean and std on `device`, made there once."""
+    return (torch.as_tensor(IMAGENET_MEAN, device=device),
+            torch.as_tensor(IMAGENET_STD, device=device))
+
+
 def preprocess(img, jitter=None, generator=None):
     """ColorJitter + ImageNet normalize. Eval jitters too, as the reference
     does (torchvision transforms are mode-agnostic); `jitter` holds the 4
     factors, else they are drawn from `generator`."""
     x = color_jitter(img, jitter, generator)
-    mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
-    std = torch.as_tensor(IMAGENET_STD, device=img.device)
+    mean, std = _imagenet_stats(img.device)
     return (x - mean) / std
 
 
@@ -181,6 +189,16 @@ def draw_step(generator: torch.Generator, cfg: Config, b: int) -> StepDraws:
     if cfg.use_depth and cfg.depth_loss_chamfer:
         cu, cub = M.surface_draws(generator, b, 2000)
     return StepDraws(jitter, sym_u, sym_ub, angle, cycle_jitter, cu, cub)
+
+
+def upload_draws(draws: StepDraws, device) -> StepDraws:
+    """The draws on `device`, the CPU ones in one non-blocking copy
+    (utils/device.py upload). The angle stays where it is: rotate_fast
+    picks its quarter turn on the host."""
+    names = [n for n in StepDraws._fields
+             if n != "angle" and getattr(draws, n) is not None]
+    moved = upload([getattr(draws, n) for n in names], device)
+    return draws._replace(**dict(zip(names, moved)))
 
 
 def weights_schedule(step: int, cfg: Config) -> dict:

@@ -10,6 +10,8 @@ each pixel falls in instead of the interpolated vertex colour.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -30,12 +32,18 @@ def barycentric_pattern(n: int) -> np.ndarray:
     return np.stack([xx, yy], -1).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _pattern_on(n: int, device: torch.device) -> torch.Tensor:
+    """barycentric_pattern(n) on `device`, made there once."""
+    return torch.as_tensor(barycentric_pattern(n), device=device)
+
+
 def surface_texture(img: torch.Tensor, imatch: torch.Tensor,
                     faces: torch.Tensor, n: int = 6) -> torch.Tensor:
     """img (B, H, W, 3); imatch (B, V, 2) NDC; faces (F, 3) long ->
     (B, F, n^2, 3)."""
     b = img.shape[0]
-    pat = torch.as_tensor(barycentric_pattern(n), device=img.device)
+    pat = _pattern_on(n, img.device)
     fm = imatch[:, faces]                             # (B, F, 3, 2)
     m0 = fm[:, :, 0]                                  # (B, F, 2)
     e1 = fm[:, :, 1] - m0

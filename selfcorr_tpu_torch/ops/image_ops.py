@@ -13,9 +13,13 @@ selfcorr_tpu/ops/image_ops.py).
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from selfcorr_tpu_torch.utils.device import upload
 
 
 def resize_nearest(img: torch.Tensor, out_hw) -> torch.Tensor:
@@ -82,7 +86,8 @@ def rotate_fast(img: torch.Tensor, angle_deg, mode: str = "bilinear"
     b, h, w, c = img.shape
     if h != w:
         raise ValueError("rotate_fast needs square images")
-    # the angle's arithmetic runs in float32 on the host (no device sync)
+    # the angle's arithmetic runs in float32 on the host, and the shear
+    # factors reach the device as numbers: no copy waits for the device
     theta = torch.deg2rad(torch.as_tensor(angle_deg, dtype=torch.float32)
                           .cpu())
     turns = torch.floor((theta + torch.pi / 4) / (torch.pi / 2))
@@ -94,8 +99,8 @@ def rotate_fast(img: torch.Tensor, angle_deg, mode: str = "bilinear"
         img = torch.flip(img, dims=(1, 2))
     elif k == 3:    # out[r, c] = in[h-1-c, r]
         img = torch.flip(img.transpose(1, 2), dims=(2,))
-    a = (-torch.tan(phi / 2.0)).to(img.device)
-    bb = torch.sin(phi).to(img.device)
+    a = float(-torch.tan(phi / 2.0))
+    bb = float(torch.sin(phi))
     rows = torch.arange(h, dtype=torch.float32, device=img.device) \
         - (h - 1) / 2.0
     tx = _shear_matrix(w, a * rows, mode)    # x-shear per row
@@ -139,6 +144,13 @@ _RGB2YIQ_NP = np.array([[0.2989, 0.587, 0.114],
 _YIQ2RGB_NP = np.linalg.inv(_RGB2YIQ_NP.astype(np.float64)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _yiq_matrices(device: torch.device) -> tuple:
+    """RGB -> YIQ and YIQ -> RGB on `device`, made there once."""
+    return (torch.as_tensor(_RGB2YIQ_NP, device=device),
+            torch.as_tensor(_YIQ2RGB_NP, device=device))
+
+
 def _rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
     return (0.2989 * img[..., 0:1] + 0.587 * img[..., 1:2]
             + 0.114 * img[..., 2:3])
@@ -167,14 +179,15 @@ def color_jitter(img: torch.Tensor, factors: torch.Tensor | None = None,
         if generator is None:
             raise ValueError("color_jitter needs factors or a generator")
         factors = jitter_factors(generator)
-    f = torch.as_tensor(factors, dtype=img.dtype).to(img.device)
+    f = torch.as_tensor(factors, dtype=img.dtype)
+    if f.device != img.device:
+        f = upload([f], img.device)[0]
     fb, fc, fs, fh = f[0], f[1], f[2], f[3]
     x = img * fb
     gray_mean = _rgb_to_gray(x).mean(dim=(-3, -2), keepdim=True)
     x = fc * x + (1 - fc) * gray_mean
     x = fs * x + (1 - fs) * _rgb_to_gray(x)
-    rgb2yiq = torch.as_tensor(_RGB2YIQ_NP, device=img.device)
-    yiq2rgb = torch.as_tensor(_YIQ2RGB_NP, device=img.device)
+    rgb2yiq, yiq2rgb = _yiq_matrices(img.device)
     yiq = torch.einsum("...c,dc->...d", x, rgb2yiq)
     th = 2 * np.pi * fh
     cos_t, sin_t = torch.cos(th), torch.sin(th)

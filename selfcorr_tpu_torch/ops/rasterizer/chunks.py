@@ -62,7 +62,7 @@ def compute_chunk_info(consts: torch.Tensor, image_size: int, pad: float):
     nc = f_pad // C.FF
     dev = consts.device
     bb = consts[..., C.S_BBOX:C.S_BBOX + 4].reshape(b, nc, C.FF, 4)
-    big = torch.tensor(-C._BIG, dtype=consts.dtype, device=dev)
+    big = -C._BIG
     cxmin = bb[..., 0].amin(-1)                                   # (B, NC)
     cxmax = torch.where(bb[..., 0] >= C._BIG, big, bb[..., 1]).amax(-1)
     cymin = bb[..., 2].amin(-1)

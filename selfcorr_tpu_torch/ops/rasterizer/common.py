@@ -199,7 +199,7 @@ def pack_constants(face_verts: torch.Tensor, soft_tex: torch.Tensor,
     if f_pad != f:
         filler = torch.zeros((b, f_pad - f, k_tot), dtype=torch.float32,
                              device=packed.device)
-        filler[..., [S_PC + 2, S_PC + 5, S_PC + 8]] = _BIG
+        filler[..., S_PC + 2:S_PC + 9:3] = _BIG   # slots S_PC + 2, 5, 8
         filler[..., S_BBOX:S_BBOX + 4] = _BIG
         filler[..., S_IZ:S_IZ + 3] = 1.0
         filler[..., S_Z:S_Z + 3] = 1.0

@@ -72,7 +72,8 @@ from selfcorr_tpu_torch.train.step import (decompress_batch, init_state,
                                            train_step)
 from selfcorr_tpu_torch.utils import checkpoint as ckpt
 from selfcorr_tpu_torch.utils import tracing
-from selfcorr_tpu_torch.utils.device import resolve_device, set_fp32_precision
+from selfcorr_tpu_torch.utils.device import (resolve_device,
+                                             set_fp32_precision, upload)
 from selfcorr_tpu_torch.utils.logging import (NoopWriter, log_metrics,
                                               make_writer,
                                               write_config_snapshot)
@@ -146,13 +147,9 @@ class Trainer:
             print(msg, flush=True)
 
     def upload(self, batch: dict) -> dict:
-        out = {}
-        for k in BATCH_KEYS:
-            t = torch.as_tensor(np.ascontiguousarray(batch[k]))
-            if self.device.type == "cuda":
-                t = t.pin_memory().to(self.device, non_blocking=True)
-            out[k] = t
-        return out
+        return dict(zip(BATCH_KEYS, upload(
+            [torch.as_tensor(np.ascontiguousarray(batch[k]))
+             for k in BATCH_KEYS], self.device)))
 
     def save(self, step: int) -> None:
         """Rank 0 writes the checkpoint; every rank waits for it."""

@@ -120,23 +120,27 @@ class Optimizer:
         self.adamw.load_state_dict(sd["adamw"])
 
 
-def _group_norm(params, device) -> torch.Tensor:
-    """Global norm of the gradients of `params` (0 for an empty group, as
-    for a --no_deform shape predictor)."""
-    return torch.sqrt(sum(((p.grad.float() ** 2).sum() for p in params),
-                          torch.zeros((), device=device)))
+def _group_norm(grads, device) -> torch.Tensor:
+    """Global norm of `grads`, from one multi-tensor norm launch (0 for an
+    empty group, as for a --no_deform shape predictor)."""
+    if not grads:
+        return torch.zeros((), device=device)
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
 
 
 def clip_and_guard(model) -> tuple:
     """Per-group clipping, then the global NaN guard, in place on the
-    gradients and on the device (no host sync): mean_v to norm 1,
-    shape_predictor to 1, pose_predictor to 0.1; then, if any gradient of
-    any parameter is not finite, every gradient becomes zero.
+    gradients and on the device (no host sync), in a few multi-tensor
+    launches: mean_v to norm 1, shape_predictor to 1, pose_predictor to
+    0.1; then, if any gradient of any parameter is not finite, every
+    gradient becomes zero. The guard reads every gradient once, from one
+    flat copy: it is zeroed where a value is not finite (a fill, since
+    NaN x 0 is NaN) and copied back.
 
     Returns (norms {grad_meanv_norm, grad_shapenerf_norm,
     grad_pose_predictor_norm}, before clipping; bad (), True when the guard
     fired)."""
-    params = [p for p in model.parameters() if p.grad is not None]
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
     enc = model.encoder
     norms = {}
     for key, params_g, max_norm in (
@@ -145,13 +149,15 @@ def clip_and_guard(model) -> tuple:
              1.0),
             ("grad_pose_predictor_norm", list(enc.pose_predictor.parameters()),
              0.1)):
-        params_g = [p for p in params_g if p.grad is not None]
-        norm = _group_norm(params_g, model.mesh.mean_v.device)
+        grads_g = [p.grad for p in params_g if p.grad is not None]
+        norm = _group_norm(grads_g, model.mesh.mean_v.device)
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
-        for p in params_g:
-            p.grad.mul_(scale)
+        if grads_g:
+            torch._foreach_mul_(grads_g, scale)
         norms[key] = norm
-    finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
-    for p in params:
-        p.grad.copy_(torch.where(finite, p.grad, torch.zeros_like(p.grad)))
-    return norms, ~finite
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    bad = ~torch.isfinite(flat).all()
+    flat.masked_fill_(bad, 0.0)
+    pieces = flat.split([g.numel() for g in grads])
+    torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(pieces, grads)])
+    return norms, bad

@@ -1,14 +1,17 @@
 """Train state and the train step (counterpart of
 selfcorr_tpu/train/step.py).
 
-One step: decompress the uploaded batch, the training forward (all losses,
-the fused render through kernels B1 and B2, the frozen DINO trunk through
-kernel B3), backward, per-group clipping and the NaN guard, one AdamW
-update with the OneCycle learning rates. The metrics stay on the device as
-0-d tensors; the caller fetches them when it logs. Across ranks (a process
-group) each rank steps on its own rows, and the gradients, aux losses and
-BatchNorm running statistics are averaged before the clip, as the JAX
-package's train_step_sharded pmeans them (selfcorr_tpu/train/step.py:175).
+One step: decompress the uploaded batch and upload the step's draws in
+one non-blocking copy, the training forward (all losses, the fused render
+through kernels B1 and B2, the frozen DINO trunk through kernel B3),
+backward, per-group clipping and the NaN guard, one AdamW update with the
+OneCycle learning rates. The metrics stay on the device as 0-d tensors;
+the caller fetches them when it logs. Across ranks (a process group) each
+rank steps on its own rows, and the gradients, aux losses and BatchNorm
+running statistics are averaged before the clip, as the JAX package's
+train_step_sharded pmeans them (selfcorr_tpu/train/step.py:175). Once
+warm, a step makes the host wait for the device nowhere (no blocking copy,
+no read of a device value), so the host queues work ahead of the device.
 Each phase is a span of utils/tracing.py, the whole call a unit.
 """
 from __future__ import annotations
@@ -23,7 +26,7 @@ from selfcorr_tpu_torch.models.init import (build_like_jax, init_generator,
 from selfcorr_tpu_torch.models.meshnet import (DeviceConstants, MeshConstants,
                                                MeshNet, StepDraws,
                                                device_constants,
-                                               forward_train)
+                                               forward_train, upload_draws)
 from selfcorr_tpu_torch.models.vit import DinoViTS8
 from selfcorr_tpu_torch.parallel import all_mean_
 from selfcorr_tpu_torch.train.optim import Optimizer, clip_and_guard
@@ -104,6 +107,7 @@ def train_step(state: TrainState, batch: dict, draws: StepDraws,
     with span("train_step"):
         with span("step.decompress"):
             batch = decompress_batch(batch)
+            draws = upload_draws(draws, batch["img"].device)
         model = state.model
         model.zero_grad(set_to_none=True)
         with span("step.forward"):

@@ -6,8 +6,9 @@ on the card against the same path on the CPU, one full-width train step
 on the card (laptop and bottle), a resume from a checkpoint on the card,
 the chamfers' nearest-point search (B4) against a float64 brute force, the
 CUB
-evaluation's mask render on a batch read from a Wild6D fixture, and the
-trainer's image-log forward (forward_vis) on the card against the CPU.
+evaluation's mask render on a batch read from a Wild6D fixture, the
+trainer's image-log forward (forward_vis) on the card against the CPU, and
+a steady train step that never makes the host wait for the card.
 They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -302,6 +303,92 @@ def test_full_width_bottle_train_step_launches_b4_once(cuda, tmp_path):
                                "raster_fused_fwd_chunk": 0,
                                "raster_fused_bwd_chunk": 0}
     assert A.LAUNCHES == {"dino_flash_attn": 9}
+
+
+def laptop_step_inputs(tmp_path):
+    """A Trainer at Wild6D-laptop width (img 256, batch 8 x 4) on the card,
+    one uploaded synthetic batch, its config and a draw generator."""
+    from selfcorr_tpu_torch.configs import parse_args
+    from selfcorr_tpu_torch.data.loader import stack_items
+    from selfcorr_tpu_torch.train.loop import Trainer, make_train_dataset
+    cfg = parse_args(["--flagfile", os.path.join(ROOT, "config/wild6d/"
+                                                 "laptop.txt"),
+                      "--dataset_name", "synthetic",
+                      "--checkpoint_dir", str(tmp_path)])
+    trainer = Trainer(cfg)
+    ds = make_train_dataset(cfg)
+    batch = trainer.upload(stack_items([ds.load_item(*a)
+                                        for a in ds.sample_plan(0)]))
+    return trainer, batch, cfg, torch.Generator().manual_seed(0)
+
+
+@pytest.mark.parametrize("with_group", [False, True])
+def test_steady_train_step_never_waits_on_the_card(cuda, tmp_path,
+                                                   with_group):
+    """After two warm-up steps, two laptop-width train steps, their draws
+    made on the host, run under torch.cuda.set_sync_debug_mode("error"):
+    no blocking copy, synchronize or read of a device value, so the host
+    queues ahead of the card. Without a group and through an NCCL group of
+    one (the all_mean_ exchange). B1, B2 and B3 launch 1, 1 and 9 times a
+    step."""
+    import torch.distributed as dist
+    from selfcorr_tpu_torch import parallel as P
+    from selfcorr_tpu_torch.models.meshnet import draw_step
+    from selfcorr_tpu_torch.train.step import train_step
+    trainer, batch, cfg, gen = laptop_step_inputs(tmp_path)
+    group = None
+    if with_group:
+        P.init_distributed(0, 1, f"127.0.0.1:{P.free_port()}", "cuda")
+        group = dist.group.WORLD
+    try:
+        def step():
+            return train_step(trainer.state, batch, draw_step(gen, cfg, 32),
+                              cfg, group)
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        kernel.reset_launches()
+        A.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = [step() for _ in range(2)]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    finally:
+        if with_group:
+            dist.destroy_process_group()
+    assert all(float(m["bad_grad"]) == 0.0 for m in metrics)
+    assert all(np.isfinite(float(v)) for m in metrics for v in m.values())
+    assert kernel.LAUNCHES == {"raster_fused_fwd": 2, "raster_fused_bwd": 2,
+                               "raster_fused_fwd_chunk": 0,
+                               "raster_fused_bwd_chunk": 0}
+    assert A.LAUNCHES == {"dino_flash_attn": 18}
+
+
+def test_step_with_draws_on_the_card_equals_draws_on_the_host(cuda,
+                                                              tmp_path):
+    """A laptop-width step given its draws on the host (train_step uploads
+    them) and the same step given them already on the card (upload_draws)
+    return the same losses and the same update, bit for bit, under the
+    deterministic algorithms."""
+    from selfcorr_tpu_torch.models.meshnet import draw_step, upload_draws
+    from selfcorr_tpu_torch.train.step import train_step
+    trainer, batch, cfg, gen = laptop_step_inputs(tmp_path)
+    draws = draw_step(gen, cfg, 32)
+    on_card = upload_draws(draws, cuda)
+    assert on_card.sym_u.is_cuda and on_card.jitter.is_cuda
+    assert on_card.angle is draws.angle
+    with deterministic():
+        other = copy.deepcopy(trainer.state)
+        host = train_step(trainer.state, batch, draws, cfg)
+        card = train_step(other, batch, on_card, cfg)
+    torch.cuda.synchronize()
+    for k in host:
+        assert torch.equal(host[k], card[k]), k
+    for (n, p), q in zip(trainer.state.model.named_parameters(),
+                         other.model.parameters()):
+        assert torch.equal(p, q), n
 
 
 def brute_force_sq_dist(x, y, y_valid=None):

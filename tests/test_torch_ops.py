@@ -216,3 +216,25 @@ def test_png_roundtrip(tmp_path):
                                       else back, img)
     assert imageio.to_u8(np.array([-1.0, 0.5, 2.0])).tolist() == [0, 127,
                                                                   255]
+
+
+def test_upload_packs_host_tensors_into_one_buffer_per_dtype():
+    """utils/device.py upload: every host tensor comes back equal, in its
+    shape and dtype, as a view of one flat buffer per dtype, in order."""
+    from selfcorr_tpu_torch.utils.device import upload
+    gen = torch.Generator().manual_seed(0)
+    host = [torch.rand((2, 3, 1), generator=gen), torch.arange(5),
+            torch.rand((), generator=gen), torch.rand((4,), generator=gen),
+            torch.arange(3).reshape(3, 1)]
+    got = upload(host, "cpu")
+    for h, g in zip(host, got):
+        assert g.shape == h.shape and g.dtype == h.dtype
+        assert torch.equal(g, h)
+    floats = {g.untyped_storage().data_ptr() for g in got
+              if g.dtype == torch.float32}
+    longs = {g.untyped_storage().data_ptr() for g in got
+             if g.dtype == torch.int64}
+    assert len(floats) == 1 and len(longs) == 1 and floats != longs
+    assert [g.storage_offset() for g in got] == [0, 0, 6, 7, 5]
+    host[0].zero_()              # the caller's tensors are free at once
+    assert torch.equal(got[3], host[3]) and float(got[0].abs().sum()) > 0

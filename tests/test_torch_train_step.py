@@ -45,7 +45,8 @@ from selfcorr_tpu.train.step import init_state as jax_init_state
 from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.models.meshnet import (MeshNet, StepDraws,
                                                build_mesh_constants,
-                                               forward_train, preprocess)
+                                               forward_train, preprocess,
+                                               upload_draws)
 from selfcorr_tpu_torch.models.vit import DinoViTS8
 from selfcorr_tpu_torch.ops.rasterizer import api as raster_api
 from selfcorr_tpu_torch.train import optim as O
@@ -292,6 +293,128 @@ def test_nan_guard_zeroes_gradients_and_still_updates(shared):
                                0.9 * m_before, rtol=1e-6, atol=0)
     assert float(st.optimizer.adamw.state[p]["step"]) == 2.0 and st.step == 2
     assert not torch.equal(p.detach(), before)   # decay + momentum moved it
+
+
+def clip_and_guard_per_parameter(model):
+    """The clip and the guard one parameter at a time, as the port took them
+    before they became a few multi-tensor launches: the plain version the
+    fused one is held to."""
+    params = [p for p in model.parameters() if p.grad is not None]
+    enc = model.encoder
+    norms = {}
+    for key, params_g, max_norm in (
+            ("grad_meanv_norm", [model.mesh.mean_v], 1.0),
+            ("grad_shapenerf_norm", list(enc.shape_predictor.parameters()),
+             1.0),
+            ("grad_pose_predictor_norm", list(enc.pose_predictor.parameters()),
+             0.1)):
+        params_g = [p for p in params_g if p.grad is not None]
+        norm = torch.sqrt(sum(((p.grad.float() ** 2).sum() for p in params_g),
+                              torch.zeros(())))
+        scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-6), max=1.0)
+        for p in params_g:
+            p.grad.mul_(scale)
+        norms[key] = norm
+    finite = torch.stack([torch.isfinite(p.grad).all() for p in params]).all()
+    for p in params:
+        p.grad.copy_(torch.where(finite, p.grad, torch.zeros_like(p.grad)))
+    return norms, ~finite
+
+
+@pytest.fixture(scope="module")
+def tiny_model():
+    """A tiny port model, built without the JAX package."""
+    cfg = Config(device="cpu", **TINY)
+    return MeshNet(cfg, build_mesh_constants(cfg))
+
+
+def planted_grads(model, scale, seed=0):
+    """Two copies of `model` carrying the same seeded gradients, `scale`
+    times a standard normal draw each."""
+    other = copy.deepcopy(model)
+    gen = torch.Generator().manual_seed(seed)
+    for p, q in zip(model.parameters(), other.parameters()):
+        p.grad = scale * torch.randn(p.shape, generator=gen)
+        q.grad = p.grad.clone()
+    return model, other
+
+
+def grads_of(model):
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+# the three clip groups and a parameter outside them
+GUARD_SITES = ("mesh.mean_v", "encoder.shape_predictor",
+               "encoder.pose_predictor", "encoder.backbone")
+
+
+@pytest.mark.parametrize("scale", [1e-4, 1.0])
+def test_fused_clip_matches_the_per_parameter_clip(tiny_model, scale):
+    """The group norms and the clipped gradients within 1e-6 relative of
+    the per-parameter version's; at scale 1 every group is clipped, at
+    1e-4 none is."""
+    fused, plain = planted_grads(tiny_model, scale)
+    norms, bad = O.clip_and_guard(fused)
+    want_norms, want_bad = clip_and_guard_per_parameter(plain)
+    assert not bool(bad) and not bool(want_bad)
+    clipped = 0
+    for k, want in want_norms.items():
+        assert abs(float(norms[k]) - float(want)) <= 1e-6 * float(want), k
+        clipped += float(want) > (0.1 if "pose" in k else 1.0)
+    assert clipped == (3 if scale == 1.0 else 0)
+    got, want = grads_of(fused), grads_of(plain)
+    for n in want:
+        lim = 1e-6 * float(want[n].abs().max())
+        assert float((got[n] - want[n]).abs().max()) <= lim, n
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+@pytest.mark.parametrize("site", GUARD_SITES)
+def test_fused_guard_zeroes_every_gradient(tiny_model, site, value):
+    """One NaN or +inf planted in a parameter of each clip group in turn,
+    and in one outside them: bad_grad, and every gradient exactly zero, as
+    the per-parameter version gives."""
+    fused, plain = planted_grads(tiny_model, 1.0)
+    for model in (fused, plain):
+        name = next(n for n, _ in model.named_parameters()
+                    if n.startswith(site))
+        model.get_parameter(name).grad.view(-1)[0] = value
+    _, bad = O.clip_and_guard(fused)
+    _, want_bad = clip_and_guard_per_parameter(plain)
+    assert bool(bad) and bool(want_bad)
+    for n, g in grads_of(fused).items():
+        assert torch.equal(g, torch.zeros_like(g)), n
+
+
+def test_fused_guard_leaves_finite_gradients_untouched(tiny_model):
+    """Finite gradients under every clip threshold come out bit for bit as
+    they went in, and bad_grad is false."""
+    fused, _ = planted_grads(tiny_model, 1e-4)
+    before = {n: g.clone() for n, g in grads_of(fused).items()}
+    _, bad = O.clip_and_guard(fused)
+    assert not bool(bad)
+    for n, g in grads_of(fused).items():
+        assert torch.equal(g, before[n]), n
+
+
+def test_step_with_uploaded_draws_equals_step_with_host_draws(shared):
+    """A step given its draws as drawn and a step given them through
+    upload_draws, already where the step runs: the same losses and the
+    same update, bit for bit."""
+    sh = shared
+    host, staged = port_state(sh), port_state(sh)
+    batch = torch_batch(sh["batch"])
+    moved = upload_draws(sh["draws"], "cpu")
+    assert moved.angle is sh["draws"].angle
+    for n in ("jitter", "sym_u", "sym_ub", "cycle_jitter"):
+        assert torch.equal(getattr(moved, n), getattr(sh["draws"], n)), n
+    m_host = train_step(host, batch, sh["draws"], sh["cfg"])
+    m_staged = train_step(staged, batch, moved, sh["cfg"])
+    for k in m_host:
+        assert torch.equal(m_host[k], m_staged[k]), k
+    for (n, p), q in zip(host.model.named_parameters(),
+                         staged.model.parameters()):
+        assert torch.equal(p, q), n
 
 
 @pytest.mark.parametrize("total", [1, 2, 10, 200, 20000])

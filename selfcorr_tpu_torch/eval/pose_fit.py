@@ -67,7 +67,7 @@ def fit_poses(match, match_conf, depth, mask, pp_crop, foc_crop, pred_v,
     eye = torch.eye(3, device=dev).expand(b, 3, 3)
     rotation = torch.where(ok[:, None, None], fit["R"], eye)
     translation = torch.where(ok[:, None], fit["t"],
-                              torch.tensor([0.0, 0.0, 500.0], device=dev))
+                              500.0 * eye[:, 2])            # (0, 0, 500)
     scale = torch.where(ok, fit["scale"], 100.0)
     translation = translation[:, None, :] * 0.001           # mm -> m
     scale_fit = scale[:, None, None] * 0.001

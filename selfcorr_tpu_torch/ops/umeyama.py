@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from selfcorr_tpu_torch.utils import tracing
+from selfcorr_tpu_torch.utils.device import upload
 
 
 def umeyama_similarity(src, tgt, w):
@@ -47,21 +48,27 @@ def draw_samples(valid: torch.Tensor, n_iters: int, n_sample: int,
                  generator: torch.Generator | None = None,
                  u: torch.Tensor | None = None) -> torch.Tensor:
     """(B, n_iters, n_sample) indices drawn uniformly, with replacement,
-    from each row's valid points: from the uniforms `u` in [0, 1) of that
-    shape, else from ones drawn on the CPU from `generator`."""
+    from each row's valid points, on valid's device: from the uniforms `u`
+    in [0, 1) of that shape, else from ones drawn on the CPU from
+    `generator`; the uniforms go up in one non-blocking copy.
+
+    Draw u of a row with c valid points (c = 1 for a row with none) picks
+    its k-th valid point, k = min(int(u * c), c - 1): the first position
+    whose running count of valid points reaches k + 1, which is where a
+    stable sort of ~valid puts it. A row with no valid point gives
+    position 0, as that sort does. Nothing waits for the device."""
     with tracing.span("umeyama.draw"):
         b, n = valid.shape
-        with tracing.span("umeyama.draw.wait"):    # waits for the device
-            v = valid.cpu()
-        order = torch.sort((~v).to(torch.int8), dim=-1, stable=True).indices
-        count = v.sum(-1).clamp(min=1)
         if u is None:
             u = torch.rand((b, n_iters, n_sample), generator=generator)
+        (u,) = upload([u], valid.device)
+        count = valid.sum(-1).clamp(min=1)
         k = (u * count[:, None, None]).long().minimum(
             count[:, None, None] - 1)
-        idx = torch.gather(order, 1, k.reshape(b, -1)).reshape(b, n_iters,
-                                                               n_sample)
-        return idx.to(valid.device)
+        seen = valid.cumsum(-1)                 # valid points up to each
+        idx = torch.searchsorted(seen, (k + 1).reshape(b, -1))
+        idx = torch.where(idx < n, idx, 0)      # a row with none
+        return idx.reshape(b, n_iters, n_sample)
 
 
 def ransac_umeyama_batch(src, tgt, valid, n_iters: int = 100,
@@ -90,7 +97,7 @@ def ransac_umeyama_batch(src, tgt, valid, n_iters: int = 100,
                              "generator")
         sample_idx = draw_samples(valid, n_iters, n_sample, generator,
                                   sample_u)
-    sample_idx = sample_idx.to(src.device).long()
+    (sample_idx,) = upload([sample_idx.long()], src.device)
     flat = sample_idx.reshape(b, -1, 1).expand(-1, -1, 3)
     s_pts = torch.gather(src, 1, flat).reshape(b, n_iters, n_sample, 3)
     t_pts = torch.gather(tgt, 1, flat).reshape(b, n_iters, n_sample, 3)

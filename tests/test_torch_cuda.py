@@ -7,8 +7,10 @@ on the card (laptop and bottle), a resume from a checkpoint on the card,
 the chamfers' nearest-point search (B4) against a float64 brute force, the
 CUB
 evaluation's mask render on a batch read from a Wild6D fixture, the
-trainer's image-log forward (forward_vis) on the card against the CPU, and
-a steady train step that never makes the host wait for the card.
+trainer's image-log forward (forward_vis) on the card against the CPU, a
+steady train step that never makes the host wait for the card, and
+RANSAC's draw and the pose fit on the card: the draw equal to the CPU's,
+the fit with no wait for the card.
 They skip without a card.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -875,3 +877,86 @@ def test_device_generator_on_card_matches_cpu(cuda):
     assert float((got["depth"] - want["depth"]).abs()[same].max()) <= 2.0
     for k in ("foc_crop", "pp_crop"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-6)
+
+
+def test_ransac_draw_on_the_card_equals_the_draw_on_the_host(cuda):
+    """RANSAC's draw at the laptop's budget (16 rows of 16384 points, 100
+    hypotheses of 5), from one set of uniforms made on the host, over the
+    same valid masks on the card and on the CPU: rows with no valid
+    point, every point, a prefix, one point and scattered points at
+    densities from 0.1% to 99.9% give the same positions bit for bit."""
+    from selfcorr_tpu_torch.ops.umeyama import draw_samples
+    gen = torch.Generator().manual_seed(5)
+    n = 16384
+    rows = [torch.zeros(n, dtype=torch.bool), torch.ones(n, dtype=torch.bool),
+            torch.arange(n) < 8861, torch.arange(n) == 9000]
+    rows += [torch.rand(n, generator=gen) < p
+             for p in (0.001, 0.1, 0.2, 0.3, 0.5, 0.526, 0.54, 0.6, 0.7, 0.9,
+                       0.99, 0.999)]
+    valid = torch.stack(rows)
+    u = torch.rand((len(rows), 100, 5), generator=gen)
+    host = draw_samples(valid, 100, 5, u=u)
+    card = draw_samples(valid.to(cuda), 100, 5, u=u)
+    assert card.is_cuda and card.dtype == torch.int64
+    assert torch.equal(card.cpu(), host)
+
+
+def test_pose_fit_never_waits_on_the_card(cuda, monkeypatch):
+    """fit_poses at the laptop's evaluation size (16 frames at 256^2, a
+    budget of 16384 points, 100 hypotheses) on inputs on the card, its
+    RANSAC uniforms made on the host as Tester.predict_batch makes them:
+    after a warm-up call, a call runs under
+    torch.cuda.set_sync_debug_mode("error"), so no step of the fit copies
+    a device value to the host or waits for the card, but for the one
+    library call that cannot avoid it: torch.linalg.svd reads its info
+    codes on the host to raise on a failed convergence, and runs with the
+    mode off, twice a fit (the hypotheses, then the refit). The scene is a
+    similarity of the back-projected depth (scale 100, identity rotation),
+    so every frame fits."""
+    from selfcorr_tpu_torch.eval.pose_fit import fit_poses, pixel_grid_ndc
+    b, s = 16, 256
+    g = torch.Generator(device=cuda).manual_seed(6)
+    grid = pixel_grid_ndc(s, s, device=cuda)
+    mask = ((grid ** 2).sum(-1) < 0.5).float().expand(b, s, s)
+    depth = (500.0 + 40.0 * torch.rand((b, s, s), generator=g,
+                                       device=cuda)) * mask
+    conf = torch.rand((b, s, s), generator=g, device=cuda) * mask
+    pp = torch.zeros((b, 2), device=cuda)
+    foc = torch.full((b, 2), 2.0, device=cuda)
+    tgt = torch.stack([grid[..., 0] * depth / 2.0, grid[..., 1] * depth / 2.0,
+                       depth], -1)
+    match = tgt / 100.0 + 1e-3 * torch.randn((b, s, s, 3), generator=g,
+                                             device=cuda)
+    pred_v = torch.rand((b, 592, 3), generator=g, device=cuda) - 0.5
+    base_rot = torch.eye(3, device=cuda)
+    host_gen = torch.Generator().manual_seed(7)
+
+    def call():
+        u = torch.rand((b, 100, 5), generator=host_gen)
+        return fit_poses(match, conf, depth, mask, pp, foc, pred_v, base_rot,
+                         max_points=16384, n_iters=100, sample_u=u)
+    svd = torch.linalg.svd
+    svd_calls = []
+
+    def svd_unchecked(*args, **kwargs):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return svd(*args, **kwargs)
+        finally:
+            svd_calls.append(args[0].shape)
+            torch.cuda.set_sync_debug_mode(mode)
+    call()
+    torch.cuda.synchronize()
+    monkeypatch.setattr(torch.linalg, "svd", svd_unchecked)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fit = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert svd_calls == [(b, 100, 3, 3), (b, 3, 3)]
+    assert bool(fit["ok"].all())
+    assert bool(torch.isfinite(fit["bbox9"]).all())
+    torch.testing.assert_close(fit["scale_fit"].cpu(),
+                               torch.full((b, 1, 1), 0.1), atol=1e-4, rtol=0)

@@ -11,6 +11,7 @@ ties, as the port's stable descending sort does.
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from selfcorr_tpu.eval.pose_fit import fit_poses as jax_fit_poses
@@ -124,3 +125,56 @@ def test_drawn_samples_are_valid_points():
     idx = draw_samples(valid, 20, 5, torch.Generator().manual_seed(2))
     assert idx.shape == (3, 20, 5)
     assert torch.gather(valid, 1, idx.reshape(3, -1)).all()
+
+
+def stable_sort_draw(valid, u):
+    """The draw as a stable sort of ~valid on the host gives it: the k-th
+    point of that order, k = min(int(u * count), count - 1)."""
+    b = valid.shape[0]
+    order = torch.sort((~valid).to(torch.int8), dim=-1, stable=True).indices
+    count = valid.sum(-1).clamp(min=1)[:, None, None]
+    k = (u * count).long().minimum(count - 1)
+    return torch.gather(order, 1, k.reshape(b, -1)).reshape(u.shape)
+
+
+N_POINTS = 257
+MASKS = {
+    "empty": torch.zeros(N_POINTS, dtype=torch.bool),
+    "full": torch.ones(N_POINTS, dtype=torch.bool),
+    "prefix": torch.arange(N_POINTS) < 100,
+    "scattered": torch.rand(N_POINTS, generator=torch.Generator()
+                            .manual_seed(3)) > 0.7,
+    "single": torch.arange(N_POINTS) == 201,
+}
+
+
+@pytest.mark.parametrize("mask", list(MASKS))
+def test_draw_equals_the_stable_sort_draw(mask):
+    """Each row's draws are the stable sort's bit for bit, the row beside
+    rows of the other kinds, with uniforms at 0 and just below 1."""
+    valid = torch.stack([MASKS[mask]] + [MASKS[m] for m in MASKS
+                                         if m != mask])
+    u = torch.rand((len(MASKS), 40, 5),
+                   generator=torch.Generator().manual_seed(4))
+    u[:, 0, 0], u[:, 0, 1] = 0.0, 1.0 - 2.0 ** -24
+    got = draw_samples(valid, 40, 5, u=u)
+    assert got.dtype == torch.int64 and got.shape == (len(MASKS), 40, 5)
+    assert torch.equal(got, stable_sort_draw(valid, u))
+    if mask == "empty":
+        assert bool((got[0] == 0).all())
+
+
+def test_fit_poses_reads_nothing_back_on_the_host():
+    """The whole fit runs on inputs on the meta device, which hold no
+    values, from uniforms made on the host: no step of it copies a device
+    value to the host, so on a card nothing in it waits for the card."""
+    meta = torch.device("meta")
+    got = fit_poses(torch.empty((B, H, W, 3), device=meta),
+                    *(torch.empty((B, H, W), device=meta) for _ in range(3)),
+                    torch.empty((B, 2), device=meta),
+                    torch.empty((B, 2), device=meta),
+                    torch.empty((B, 42, 3), device=meta),
+                    torch.empty((3, 3), device=meta), max_points=64,
+                    n_iters=4, sample_u=torch.rand((B, 4, 5)))
+    assert all(v.device == meta for v in got.values())
+    assert got["bbox9"].shape == (B, 9, 3) and got["ok"].shape == (B,)

@@ -1,10 +1,10 @@
 """The port's tracer (selfcorr_tpu_torch/utils/tracing.py) on the CPU at a
 tiny size: off, the training step and the predict call leave no record
 and no range in a profiler's trace; on, they give the same outputs and
-states bit for bit, each span once a unit under its parent, and the CPU
-sort of RANSAC's draw inside its span. Then the idle charge of a
-hand-built trace, reading the units since a mark and their table, the
-bound on the units kept, and the off path's allocations."""
+states bit for bit, each span once a unit under its parent, and RANSAC's
+draw with no sort and no copy to the host inside its span. Then the idle
+charge of a hand-built trace, reading the units since a mark and their
+table, the bound on the units kept, and the off path's allocations."""
 import collections
 import tracemalloc
 from types import SimpleNamespace
@@ -19,6 +19,7 @@ from selfcorr_tpu_torch import parallel as P
 from selfcorr_tpu_torch.configs import Config
 from selfcorr_tpu_torch.eval.tester import Tester
 from selfcorr_tpu_torch.models.meshnet import build_mesh_constants, draw_step
+from selfcorr_tpu_torch.ops.umeyama import draw_samples
 from selfcorr_tpu_torch.train.step import init_state, train_step
 from selfcorr_tpu_torch.utils import tracing
 
@@ -43,8 +44,7 @@ SPANS = {
     "train": TRAIN,
     "train_group": TRAIN_GROUP,
     "predict": {"predict_batch": None, "predict.upload": "predict_batch",
-                "umeyama.draw": "predict_batch",
-                "umeyama.draw.wait": "umeyama.draw"}}
+                "umeyama.draw": "predict_batch"}}
 ALL_NAMES = {n for spans in SPANS.values() for n in spans}
 
 
@@ -160,19 +160,27 @@ def test_each_span_once_a_unit_under_its_parent(runs, case):
     assert not any(r[3] for r in ranges if r[0] in SPANS[case])
 
 
-def test_the_draws_sort_runs_inside_its_span(runs):
-    """The stable sort of the valid masks on the host lies inside
-    umeyama.draw, and outside its wait; the pixel selection's sort lies
-    outside the draw, in the call."""
+def test_the_draw_neither_sorts_nor_reads_the_mask_on_the_host(runs):
+    """No aten::sort runs inside umeyama.draw: the call's one sort is the
+    pixel selection's, outside the draw. And the draw runs on a mask on
+    the meta device, which holds no values, so nothing inside its span
+    copies the mask to the host."""
     _, _, ranges = runs[0]["predict", True]
     spans = {r[0]: r[1:3] for r in ranges if r[0] in ALL_NAMES}
     sorts = [r[1:3] for r in ranges if r[0] == "aten::sort"]
 
     def inside(r, span):
         return spans[span][0] <= r[0] and r[1] <= spans[span][1]
-    assert sum(inside(r, "predict_batch") for r in sorts) == 2
-    assert sum(inside(r, "umeyama.draw") for r in sorts) == 1
-    assert sum(inside(r, "umeyama.draw.wait") for r in sorts) == 0
+    assert sum(inside(r, "predict_batch") for r in sorts) == 1
+    assert sum(inside(r, "umeyama.draw") for r in sorts) == 0
+
+    tracing.enable()
+    idx = draw_samples(torch.ones((2, 64), dtype=torch.bool, device="meta"),
+                       8, 5, torch.Generator().manual_seed(0))
+    tracing.disable()
+    assert idx.device.type == "meta" and idx.shape == (2, 8, 5)
+    (unit,) = tracing.read()["units"]
+    assert list(unit["spans"]) == ["umeyama.draw"]
 
 
 def _event(name, start, end, cuda=False, annotation=False):
